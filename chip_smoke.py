@@ -1,16 +1,22 @@
 """Drives the PyTorch / CUDA port (``ray_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py                    # every phase; needs one CUDA card
+    python3 chip_smoke.py --phases k23,train # a subset
 
-Builds every kernel of the serving path from ``ray_tpu_torch/csrc`` with
-nvcc (sm_90a), then runs three phases and fails (exit 1) if any check
-fails:
+Builds every kernel of the serving and training paths from
+``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then runs
+five phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
-            version at the serving path's shapes, bf16, causal and not, GQA
-            and MHA: max abs error of o and lse, kernel / plain / SDPA ms
-            (CUDA events after warm-up; SDPA is the yardstick only, the port
-            never calls it) and the least time the card could take.
+            version at the serving and training shapes, bf16, causal and
+            not, GQA and MHA: max abs error of o and lse, kernel / plain /
+            SDPA ms (CUDA events after warm-up; SDPA is the yardstick only,
+            the port never calls it) and the least time the card could take.
+* k23     — the backward kernels (K2 dq, K3 dk/dv) against their plain
+            version on the same o and lse, at the training flagship's shape,
+            Llama-3-8B's heads, a ragged s and an MHA hd-64 shape, causal
+            and not: relative error of each gradient, kernel / plain ms, the
+            bound, and SDPA's backward as the yardstick.
 * forward — ``forward`` at llama3_8b (full width, full depth, random bf16
             weights from a seed) on 1 x 2048 tokens with
             attention_impl="flash" against "xla": 32 kernel launches, top-1
@@ -19,6 +25,12 @@ fails:
             requests (one admitted mid-decode); every first token must equal
             the argmax of the "xla" forward at the last prompt position; then
             ``LLMServer`` answers one batched and one streamed completion.
+* train   — ``make_train_step`` on the repo's training flagship (317M, full
+            width and depth, fp32 params, bf16 compute, remat "dots") takes
+            10 timed AdamW steps on one seeded 8 x 2048 batch: finite,
+            falling loss, K1/K2/K3 launches per step, tokens/s, MFU, peak
+            memory, one profiled step; then flash against xla on one step's
+            loss and gradients.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -41,9 +53,10 @@ TOL_LSE = 1e-3             # lse is kept in fp32
 SEED = 0
 
 # (b, h, kvh, s, hd): the serving path's prompt buckets and the forward's
-# 2048, at Llama-3-8B's heads; one MHA shape at head_dim 64
+# 2048, at Llama-3-8B's heads; one MHA shape at head_dim 64; the training
+# flagship's shape
 K1_SHAPES = [(1, 32, 8, s, 128) for s in (64, 200, 256, 512, 2048)] + [
-    (2, 8, 8, 384, 64)]
+    (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128)]
 K1_MAIN_SHAPE = (1, 32, 8, 512, 128)  # the serve phase's largest bucket
 
 
@@ -133,6 +146,117 @@ def phase_k1(dev):
             _check(o_ok and err_lse <= TOL_LSE,
                    f"K1 disagrees with _attention_reference beyond "
                    f"o {TOL_O} + {TOL_O_REL}|o| / lse {TOL_LSE}: {row}")
+    return rows
+
+
+# (b, h, kvh, s, hd) of the K2/K3 check: the training flagship's heads and
+# batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s, and
+# one MHA shape at head_dim 64
+K23_SHAPES = [(8, 8, 4, 2048, 128), (1, 32, 8, 2048, 128),
+              (1, 32, 8, 200, 128), (2, 8, 8, 384, 64)]
+K23_MAIN_SHAPE = K23_SHAPES[0]
+# each gradient is accumulated in fp32 and rounded to bf16 once (2^-8
+# relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
+TOL_GRAD_NORM = 1e-2
+TOL_GRAD_MAX = 2e-2
+
+
+def _k23_bounds(b, h, kvh, s, hd, causal):
+    """{kernel: (bound_ms, bound_by, flops, bytes)} for K2 and K3: the JAX
+    cost estimates' 3 and 4 products of 2 b h hd per (q, k) pair, over the
+    s(s+1)/2 pairs the causal mask keeps; q, k, v, dO, lse and delta read
+    once, the gradients written once."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    qbytes, kvbytes, rows = 2.0 * b * h * s * hd, 2.0 * b * kvh * s * hd, \
+        4.0 * b * h * s
+    read = 2 * qbytes + 2 * kvbytes + 2 * rows
+    out = {}
+    for name, products, written in (("k2", 3, qbytes), ("k3", 4, 2 * kvbytes)):
+        flops = 2.0 * products * b * h * hd * pairs
+        t_ops = flops / PEAK_BF16_FLOPS
+        t_bytes = (read + written) / PEAK_HBM_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     read + written)
+    return out
+
+
+def _grad_errors(got, want):
+    """(max|err|, ||err|| / ||ref||, max|err| / max|ref|) in fp32."""
+    got, want = got.float(), want.float()
+    err = got - want
+    return (err.abs().max().item(), (err.norm() / want.norm()).item(),
+            (err.abs().max() / want.abs().max()).item())
+
+
+def phase_k23(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for (b, h, kvh, s, hd) in K23_SHAPES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+        q, k, v, g = (randn(b, h, s, hd), randn(b, kvh, s, hd),
+                      randn(b, kvh, s, hd), randn(b, h, s, hd))
+        for causal in (True, False):
+            # o and lse from the plain forward, fed to both sides, so the
+            # backward kernels are held alone
+            o, lse = fa._attention_reference(q, k, v, causal)
+            dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, g, causal)
+            torch.cuda.synchronize()
+            ref = fa._flash_bwd_reference(q, k, v, o, lse, g, causal)
+            row = dict(b=b, h=h, kvh=kvh, s=s, hd=hd, causal=causal)
+            ok = True
+            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                finite = bool(torch.isfinite(got).all())
+                mx, rel_norm, rel_max = _grad_errors(got, want)
+                row[f"err_{name}"] = mx
+                row[f"rel_norm_{name}"] = rel_norm
+                row[f"rel_max_{name}"] = rel_max
+                ok = ok and finite and rel_norm <= TOL_GRAD_NORM \
+                    and rel_max <= TOL_GRAD_MAX
+            if (b, h, kvh, s, hd) == K23_MAIN_SHAPE and causal:
+                # the fp32-dq variant (the ring-hop backward's) at one shape
+                delta = (g.float() * o.float()).sum(-1)
+                dq32 = fa._launch_dq(q, k, v, g, lse, delta, causal,
+                                     dq_fp32=True)
+                ref32 = fa._flash_bwd_reference(q.float(), k, v, o, lse, g,
+                                                causal)[0]
+                _, rel_norm, rel_max = _grad_errors(dq32, ref32)
+                row["rel_norm_dq_fp32"] = rel_norm
+                ok = ok and dq32.dtype == torch.float32 and bool(
+                    torch.isfinite(dq32).all()) and rel_norm <= TOL_GRAD_NORM \
+                    and rel_max <= TOL_GRAD_MAX
+            delta = (g.float() * o.float()).sum(-1)
+            row["k2_ms"] = _time_ms(
+                lambda: fa._launch_dq(q, k, v, g, lse, delta, causal))
+            row["k3_ms"] = _time_ms(
+                lambda: fa._launch_dkv(q, k, v, g, lse, delta, causal))
+            row["plain_ms"] = _time_ms(lambda: fa._flash_bwd_reference(
+                q, k, v, o, lse, g, causal), iters=3, warmup=1)
+            # the library yardstick: SDPA's backward (K2 + K3 together) on a
+            # retained graph; the port never calls it
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=kvh != h)
+            row["sdpa_bwd_ms"] = _time_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), g, retain_graph=True))
+            del out, qs, ks, vs
+            for name, (bms, by, flops, nbytes) in _k23_bounds(
+                    b, h, kvh, s, hd, causal).items():
+                row[f"{name}_bound_ms"] = bms
+                row[f"{name}_bound_by"] = by
+                row[f"{name}_tflops"] = flops / (row[f"{name}_ms"] * 1e-3) \
+                    / 1e12
+            rows.append(row)
+            print(json.dumps({"k23": row}), flush=True)
+            _check(ok, f"K2/K3 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
+                   f"max|err| <= {TOL_GRAD_MAX} max|ref| or not finite: {row}")
     return rows
 
 
@@ -383,28 +507,193 @@ def _llm_server():
     return info
 
 
+# the repo's training flagship (bench.py, __graft_entry__.py) at full width
+# and depth: 317.2M parameters, hd 128, GQA rep 2
+TRAIN_CFG = dict(vocab_size=32000, dim=1024, n_layers=16, n_heads=8,
+                 n_kv_heads=4, ffn_dim=4096, max_seq_len=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 10
+TRAIN_LR = 1e-4            # bench.py's
+TRAIN_REMAT = "dots"       # recomputes K1 in the backward: 2 launches a layer
+# flash vs xla, one step at b1 s2048 on the same weights: two correct bf16
+# paths differ in rounding only
+TOL_LOSS_REL = 1e-2
+GRAD_COS_MIN = 0.99
+
+
+def _palm_flops_per_token(cfg, seq):
+    """bench.py's PaLM-style count: 6N + 12 L dim s."""
+    return 6.0 * cfg.num_params() + 12.0 * cfg.n_layers * cfg.dim * seq
+
+
+def phase_train(dev):
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import (LlamaConfig, compute_loss,
+                                            make_train_step)
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0)
+    t0 = time.monotonic()
+    state = shard_state(init_state(SEED))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    # one fixed seeded batch, reused every step (as bench.py does)
+    tokens = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))).to(data_dev)
+    state, loss = train_step(state, tokens)  # warm-up: cuBLAS, kernels
+    losses = [float(loss)]
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    t = time.monotonic()
+    step_losses = []
+    for _ in range(TRAIN_STEPS):
+        state, loss = train_step(state, tokens)
+        step_losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.monotonic() - t) / TRAIN_STEPS
+    launches = dict(k1=fa.flash_fwd_launches, k2=fa.flash_bwd_dq_launches,
+                    k3=fa.flash_bwd_dkv_launches)
+    losses += [float(x) for x in step_losses]
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / dt
+    out = dict(
+        config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+                    loss_chunk=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    num_params=cfg.num_params(), lr=TRAIN_LR),
+        init_s=init_s, losses=losses, step_ms=dt * 1e3,
+        tokens_per_s=tokens_per_s,
+        mfu_palm=_palm_flops_per_token(cfg, TRAIN_SEQ) * tokens_per_s
+        / PEAK_BF16_FLOPS,
+        peak_memory_gb=peak / 1e9,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        launches=launches)
+    out["profile"] = _train_profile(train_step, state, tokens)
+    _check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    _check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    n = cfg.n_layers * TRAIN_STEPS
+    _check(launches["k2"] == n and launches["k3"] == n,
+           f"K2/K3 launched {launches['k2']}/{launches['k3']} times in "
+           f"{TRAIN_STEPS} steps, want {cfg.n_layers} per step")
+    _check(launches["k1"] == 2 * n,
+           f"K1 launched {launches['k1']} times in {TRAIN_STEPS} steps, want "
+           f"{cfg.n_layers} x (1 + 1 recompute) per step")
+
+    # flash vs xla: one step's loss and gradients on the trained weights
+    params = state[0]
+    del state
+    torch.cuda.empty_cache()
+    one = tokens[:1]
+    leaves = [(f"layers.{k}", w) for k, w in params["layers"].items()] + [
+        (k, params[k]) for k in ("tok_emb", "norm", "lm_head")]
+    grads = {}
+    for impl in ("flash", "xla"):
+        icfg = LlamaConfig(**TRAIN_CFG, attention_impl=impl)
+        loss = compute_loss(icfg, params, one, remat=TRAIN_REMAT,
+                            loss_chunk=0)
+        g = torch.autograd.grad(loss, [w for _, w in leaves])
+        grads[impl] = (float(loss.detach()), g)
+    cos = {}
+    for (name, _), gf, gx in zip(leaves, grads["flash"][1], grads["xla"][1]):
+        cos[name] = torch.nn.functional.cosine_similarity(
+            gf.flatten().double(), gx.flatten().double(), dim=0).item()
+    lf, lx = grads["flash"][0], grads["xla"][0]
+    out["flash_vs_xla"] = dict(tokens=TRAIN_SEQ, loss_flash=lf, loss_xla=lx,
+                               loss_rel_diff=abs(lf - lx) / abs(lx),
+                               grad_cosine=cos, grad_cosine_min=min(
+                                   cos.values()))
+    print(json.dumps({"train": out}), flush=True)
+    _check(abs(lf - lx) <= TOL_LOSS_REL * abs(lx),
+           f"flash vs xla loss {lf} vs {lx} beyond {TOL_LOSS_REL} relative")
+    _check(min(cos.values()) >= GRAD_COS_MIN,
+           f"flash vs xla gradient cosine below {GRAD_COS_MIN}: {cos}")
+    return out
+
+
+def _train_profile(train_step, state, tokens):
+    """One train step under torch.profiler: host wall time against the
+    device time of its kernels, so the device's idle share, and the top
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        train_step(state, tokens)
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    out = dict(host_ms=host_ms,
+               device_ms=dev_ms if dev_ms > 0 else "not measured",
+               kernels=sum(e.count for e in kernels),
+               top_kernels_ms={e.key[:60]: e.self_device_time_total / 1e3
+                               for e in top},
+               # K1, K2, K3 (and their launches) in this step
+               flash_kernels={e.key[:60]: [e.self_device_time_total / 1e3,
+                                           e.count]
+                              for e in kernels if "flash_" in e.key})
+    if dev_ms > 0:
+        out["device_idle_share"] = 1.0 - dev_ms / host_ms
+    return out
+
+
 def kernels_line(report):
-    row = next(r for r in report["k1"] if r["causal"] and (
-        r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == K1_MAIN_SHAPE)
-    return [{
-        "name": "flash_fwd (K1)", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:122",
-        "launches": report["serve"]["k1_launches"],
-        "max_abs_err": max(r["err_o"] for r in report["k1"]),
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["sdpa_ms"],
-    }]
+    """The kernels record: each kernel at its main path's shape, with the
+    launches of that path's run (K1: the serve phase; K2/K3: the train
+    phase's timed steps)."""
+    line = []
+    if "k1" in report and "serve" in report:
+        row = next(r for r in report["k1"] if r["causal"] and (
+            r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == K1_MAIN_SHAPE)
+        line.append({
+            "name": "flash_fwd (K1)", "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "ray_tpu/ops/flash_attention.py:122",
+            "launches": report["serve"]["k1_launches"],
+            "max_abs_err": max(r["err_o"] for r in report["k1"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["sdpa_ms"],
+        })
+    if "k23" in report and "train" in report:
+        row = next(r for r in report["k23"] if r["causal"] and (
+            r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == K23_MAIN_SHAPE)
+        for key, name, line_no, errs in (
+                ("k2", "flash_bwd_dq (K2)", 275, ("err_dq",)),
+                ("k3", "flash_bwd_dkv (K3)", 320, ("err_dk", "err_dv"))):
+            line.append({
+                "name": name, "route": "cuda",
+                "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
+                "launches": report["train"]["launches"][key],
+                "max_abs_err": max(r[e] for r in report["k23"] for e in errs),
+                "ms": row[f"{key}_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row[f"{key}_bound_ms"],
+                "bound_by": row[f"{key}_bound_by"],
+                # SDPA's backward computes K2's and K3's work in one call
+                "library_ms": row["sdpa_bwd_ms"],
+            })
+    return line
+
+
+PHASES = ("k1", "k23", "forward", "serve", "train")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="k1,forward,serve",
-                    help="comma-separated subset of k1,forward,serve")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= {"k1", "forward", "serve"}:
+    if not phases <= set(PHASES):
         ap.error(f"unknown phases {sorted(phases)}")
 
     import torch
@@ -436,10 +725,14 @@ def main(argv=None) -> int:
     report = {"card": card, "build_s": build_s}
     if "k1" in phases:
         report["k1"] = phase_k1(dev)
+    if "k23" in phases:
+        report["k23"] = phase_k23(dev)
     if phases & {"forward", "serve"}:
         report.update(phase_model(dev, phases))
-    if "k1" in phases and "serve" in phases:
-        report["kernels"] = kernels_line(report)
+    if "train" in phases:
+        report["train"] = phase_train(dev)
+    report["kernels"] = kernels_line(report)
+    if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

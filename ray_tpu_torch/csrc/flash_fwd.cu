@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // query rows per block (16 per warp)
@@ -41,44 +43,6 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's finite mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one 16x8x16 tile: a row-major 16x16 bf16, b 16x8 bf16
-// (k-major fragment), d 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + 64) of a (s, HD) matrix into dst[64][HD + 8]; rows past s
-// are zeros. 16-byte loads, neighbouring threads on neighbouring chunks.
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int s) {
-  constexpr int CH = HD / 8;
-  constexpr int LD = HD + 8;
-  for (int idx = threadIdx.x; idx < BN * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < s)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
 
 // rows [r0, r0 + 64) of V (s, HD), transposed into dst[HD][64 + 8] so that
 // the PV B-fragments are 32-bit words; neighbouring threads take
@@ -126,7 +90,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vp = v + (size_t)(bi * kvh + kh) * s * HD;
 
   // Q tile through shared memory into this warp's A fragments
-  load_rows<HD>(sK, qp, m0, s);
+  load_rows<HD, BN, THREADS>(sK, qp, m0, s);
   __syncthreads();
   const int r0 = warp * 16 + g;
   uint32_t qf[KSTEPS][4];
@@ -154,7 +118,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * BN;
-    load_rows<HD>(sK, kp, n0, s);
+    load_rows<HD, BN, THREADS>(sK, kp, n0, s);
     load_rows_t<HD>(sVt, vp, n0, s);
     __syncthreads();
 

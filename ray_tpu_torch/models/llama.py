@@ -9,18 +9,27 @@ activations, fp32 RMSNorm statistics and softmax; RoPE, GQA and SwiGLU
 follow Llama-2/3.
 
 ``attention_impl``: "xla" is plain PyTorch attention (the name is the JAX
-package's); "flash" projects straight to (b, h, s, hd) and calls the K1
-kernel on CUDA. "ring" and "ulysses" need the sequence-parallel slice.
+package's); "flash" projects straight to (b, h, s, hd) and calls the flash
+attention kernels on CUDA (K1 forward, K2/K3 backward). "ring" and
+"ulysses" shard the sequence over a mesh's sp axis in the JAX package and
+take plain attention without one; the port has no sequence-parallel mesh
+yet, so they always take plain attention.
+
+``make_train_step`` is the single-device training step: AdamW as optax's,
+the chunked loss, and the remat modes as ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
 
@@ -38,8 +47,9 @@ class LlamaConfig:
     max_seq_len: int = 4096
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
-    # attention implementation: "xla" (plain torch), "flash" (K1 kernel on
-    # CUDA); "ring" / "ulysses" are not ported yet
+    # attention implementation: "xla" (plain torch), "flash" (the flash
+    # attention kernels on CUDA); "ring" / "ulysses" take "xla" until the
+    # port has a sequence-parallel mesh
     attention_impl: str = "xla"
 
     @property
@@ -194,10 +204,9 @@ def _attention_xla(q, k, v, causal: bool = True):
 
 
 def attention(cfg: LlamaConfig, q, k, v):
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} needs the sequence-"
-            "parallel slice (ring attention / Ulysses), not ported yet")
+    # "ring" / "ulysses" shard over a mesh's sp axis in the JAX package and
+    # fall through to plain attention when there is none (mesh None or
+    # sp == 1); the port has no sequence-parallel mesh yet
     if cfg.attention_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
@@ -213,7 +222,8 @@ def _ffn(cfg: LlamaConfig, h, p):
     return (gate * up) @ p["w2"].to(dt)
 
 
-def _layer(cfg: LlamaConfig, h, layer_params, cos, sin):
+def _layer(cfg: LlamaConfig, h, layer_params, cos, sin,
+           remat_ffn: bool = False):
     p = layer_params
     hd = cfg.head_dim
     b, s, _ = h.shape
@@ -246,6 +256,9 @@ def _layer(cfg: LlamaConfig, h, layer_params, cos, sin):
         attn = attention(cfg, q, k, v)
         attn = attn.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(dt)
     h = h + attn
+    if remat_ffn:
+        return h + checkpoint(_ffn, cfg, h, p, use_reentrant=False,
+                              preserve_rng_state=False)
     return h + _ffn(cfg, h, p)
 
 
@@ -270,3 +283,171 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# training step factory
+# ---------------------------------------------------------------------------
+
+# AdamW as the JAX package's ``optax.adamw(learning_rate)``: optax's defaults,
+# weight decay 1e-4 on every leaf, norms included (torch's default is 1e-2)
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+WEIGHT_DECAY = 1e-4
+
+
+def adamw(leaves, learning_rate: float) -> torch.optim.AdamW:
+    """``optax.adamw(learning_rate)`` over ``leaves``: decoupled decay on
+    every leaf; the fused kernel on CUDA (PyTorch's own optimizer kernel,
+    as the JAX package left the optimizer to XLA)."""
+    return torch.optim.AdamW(
+        leaves, lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
+        weight_decay=WEIGHT_DECAY,
+        fused=True if leaves[0].is_cuda else None)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable`` as a selective-checkpoint
+    policy: save the products with no batch dimension, which are the weight
+    products (``x @ W`` lowers to ``mm``; the bhsd branch's einsum
+    projections to a ``bmm`` over a batch of one), and recompute the rest:
+    the batched attention products, the flash kernels and every
+    elementwise op."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(cfg: LlamaConfig, remat):
+    """``_layer`` under one remat mode of ``make_train_step``."""
+    if remat == "ffn":
+        return partial(_layer, cfg, remat_ffn=True)
+    layer = partial(_layer, cfg)
+    if remat == "dots":
+        return partial(checkpoint, layer, use_reentrant=False,
+                       preserve_rng_state=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _dots_saveable))
+    if remat:
+        return partial(checkpoint, layer, use_reentrant=False,
+                       preserve_rng_state=False)
+    return layer
+
+
+def _backbone(cfg: LlamaConfig, params, tokens, layer):
+    h = params["tok_emb"].to(cfg.dtype)[tokens]
+    cos, sin = rope_tables(cfg, torch.arange(tokens.shape[1],
+                                             device=tokens.device))
+    # one unbind per stacked weight: its backward stacks the layers'
+    # gradients once, where indexing would make a full-size zero tensor for
+    # every layer
+    stacked = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(cfg.n_layers):
+        h = layer(h, {name: ws[i] for name, ws in stacked.items()}, cos, sin)
+    return rms_norm(h, params["norm"], cfg.norm_eps)
+
+
+def _chunk_nll(cfg: LlamaConfig, lm_head, h_c, tgt_c, mask_c):
+    """Masked NLL sum over one sequence chunk. tgt -1 = no target."""
+    logits = (h_c @ lm_head.to(cfg.dtype)).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = tgt_c.clamp_min(0).long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return (nll * mask_c).sum()
+
+
+def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
+                 loss_chunk: int = 512) -> torch.Tensor:
+    """The loss ``make_train_step`` differentiates: next-token NLL, mean over
+    the positions that have a target.
+
+    The forward runs on the FULL sequence and position s-1, which has no
+    target, is masked out instead of sliced off (so the attention kernels
+    see s, not s-1). The (b, s, vocab) fp32 logits are the largest
+    activations: when ``loss_chunk`` divides s into more than one chunk,
+    each chunk's logits are made under ``torch.utils.checkpoint``, so only
+    one chunk's are live in either direction."""
+    h = _backbone(cfg, params, tokens, _remat_layer(cfg, remat))
+    b, s = tokens.shape
+    targets = torch.cat([tokens[:, 1:], torch.full(
+        (b, 1), -1, dtype=tokens.dtype, device=tokens.device)], dim=1)
+    mask = (targets >= 0).float()
+    denom = mask.sum()
+    chunk = loss_chunk
+    if chunk and s % chunk == 0 and s > chunk:
+        total = 0.0
+        for c0 in range(0, s, chunk):
+            cut = slice(c0, c0 + chunk)
+            total = total + checkpoint(
+                _chunk_nll, cfg, params["lm_head"], h[:, cut], targets[:, cut],
+                mask[:, cut], use_reentrant=False, preserve_rng_state=False)
+        return total / denom
+    return _chunk_nll(cfg, params["lm_head"], h, targets, mask) / denom
+
+
+def _leaves(params) -> list:
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in _leaves(v)]
+    return [params]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
+                    remat=False, loss_chunk: int = 512, device=None):
+    """Build (init_state, shard_state, train_step, data_device) on one device.
+
+    The JAX package's ``make_train_step`` on a one-device mesh. ``mesh`` is
+    None or a ``torch.distributed.DeviceMesh`` of one device; a larger mesh
+    (the FSDP / tensor-parallel path) raises ``NotImplementedError``.
+    ``device`` defaults to CUDA. State = (params, optimizer): AdamW as
+    ``optax.adamw(learning_rate)``. ``remat`` selects the memory / FLOPs
+    trade per layer, each a ``torch.utils.checkpoint`` (non-reentrant):
+      False  — save all layer activations
+      "ffn"  — recompute only the FFN block
+      "dots" — save the weight products, recompute the rest (JAX's
+               ``dots_with_no_batch_dims_saveable``)
+      True   — recompute the whole layer
+    """
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"make_train_step on a mesh of {mesh.size()} devices needs the "
+            "sharded training slice (FSDP / tensor parallel), not ported yet")
+    dev = resolve_device(device)
+
+    def init_state(seed_or_params=0):
+        """(params, optimizer) from a seed (``init_params``) or from a
+        parameter dict (e.g. ``params_from_jax``), copied onto the device."""
+        if isinstance(seed_or_params, dict):
+            params = _map(lambda t: t.detach().to(dev, copy=True),
+                          seed_or_params)
+        else:
+            params = init_params(cfg, seed_or_params, device=dev)
+        leaves = _leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        return params, adamw(leaves, learning_rate)
+
+    def shard_state(state):
+        """Place a (params, optimizer) state: on one device it already is."""
+        return state
+
+    def train_step(state, tokens):
+        """One AdamW step on ``tokens`` (b, s) on the device. Parameters
+        and moments are updated in place, the port's stand-in for JAX's
+        donated state: the step keeps no second copy. Returns (state, loss),
+        the loss a 0-dim tensor that is not synchronised."""
+        params, opt = state
+        opt.zero_grad(set_to_none=True)
+        loss = compute_loss(cfg, params, tokens, remat, loss_chunk)
+        loss.backward()
+        opt.step()
+        return state, loss.detach()
+
+    return init_state, shard_state, train_step, dev
+

@@ -2,16 +2,18 @@
 source hash, and loads them with ctypes.
 
 Each kernel source under ``ray_tpu_torch/csrc/`` exposes a plain C entry
-point, so the build is one ``nvcc`` call per source with no PyTorch headers
-(seconds, not the minutes a torch-extension build takes):
+point (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3; both include
+``mma_tile.cuh``), so the build is one ``nvcc`` call per source with no
+PyTorch headers (seconds, not the minutes a torch-extension build takes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 Artifacts land in ``ray_tpu_torch/_build/`` and are rebuilt only when the
-source changes (modelled on ``ray_tpu/native/build.py``). ``build_all``
-starts every stale build at once, so a run that needs several kernels pays
-for the slowest, not the sum.
+source or a shared header (``csrc/*.cuh``) changes (modelled on
+``ray_tpu/native/build.py``). ``build_all`` starts every stale build at
+once, so a run that needs several kernels pays for the slowest, not the
+sum.
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ _ENTRIES = {
         "flash_fwd_bf16": (ctypes.c_int,
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
+    "flash_bwd": {
+        # q, k, v, dO, lse, delta, dq, b, h, kvh, sq, sk, hd, causal,
+        # dq_fp32, stream
+        "flash_bwd_dq": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
+        # q, k, v, dO, lse, delta, dk, dv, b, h, kvh, sq, sk, hd, causal,
+        # stream
+        "flash_bwd_dkv": (ctypes.c_int, [_P] * 8 + [_I] * 7 + [_P]),
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,10 +69,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    """Path of the shared library for ``csrc/<name>.cu``, keyed by the
-    source's hash (whether or not it is built yet)."""
-    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    """Path of the shared library for ``csrc/<name>.cu``, keyed by the hash
+    of the source and of the headers beside it (whether or not it is built
+    yet)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(_CSRC, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -40,6 +40,10 @@ def launches() -> int:
     return tfa.flash_fwd_launches
 
 
+def bwd_launches():
+    return tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches
+
+
 # -- ops/flash_attention.py --------------------------------------------------
 
 
@@ -65,6 +69,51 @@ def cpu_path_gradients(q, k, v):
     tfa.flash_attention_bhsd(q, k, v, causal=True).sum().backward()
     return (before, tfa.flash_fwd_launches, _np(q.grad), _np(k.grad),
             _np(v.grad))
+
+
+def flash_bwd_reference(q, k, v, o, lse, g, causal):
+    return tuple(_np(t) for t in tfa._flash_bwd_reference(
+        _T(q), _T(k), _T(v), _T(o), _T(lse), _T(g), causal))
+
+
+def flash_vjp(entry, q, k, v, g, causal):
+    """(launch counts before, after, dq, dk, dv) of ``torch.autograd.grad``
+    through the public entry ``entry`` on the CPU."""
+    before = (tfa.flash_fwd_launches,) + bwd_launches()
+    q, k, v = (_T(a).requires_grad_() for a in (q, k, v))
+    out = getattr(tfa, entry)(q, k, v, causal)
+    grads = torch.autograd.grad(out, (q, k, v), _T(g))
+    after = (tfa.flash_fwd_launches,) + bwd_launches()
+    return (before, after) + tuple(_np(t) for t in grads)
+
+
+def bwd_wrapper_refusal(bad):
+    """The exception type name the K2/K3 wrapper raises for input ``bad``."""
+    b, h, kvh, s, hd = 1, 4, 2, 64, 128
+    dt = torch.bfloat16
+    q, o, g = (torch.zeros((b, h, s, hd), dtype=dt) for _ in range(3))
+    k = torch.zeros((b, kvh, s, hd), dtype=dt)
+    v = torch.zeros((b, kvh, s, hd), dtype=dt)
+    lse = torch.zeros((b, h, s, 1))
+    if bad == "dtype":
+        q, k, v, o, g = (x.float() for x in (q, k, v, o, g))
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "head_dim":
+        q, k, v, o, g = (x[..., :32].contiguous() for x in (q, k, v, o, g))
+    elif bad == "heads":
+        k = v = torch.zeros((b, 3, s, hd), dtype=dt)
+    elif bad == "contiguous":
+        g = torch.zeros((b, s, h, hd), dtype=dt).transpose(1, 2)
+    elif bad == "lse_shape":
+        lse = torch.zeros((b, h, s))
+    else:
+        k = v = torch.zeros((b, kvh, s // 2, hd), dtype=dt)
+    try:
+        tfa._flash_bwd_cuda(q, k, v, o, lse, g, True)
+    except (TypeError, ValueError) as e:
+        return type(e).__name__
+    return None
 
 
 def wrapper_refusal(bad):
@@ -178,14 +227,6 @@ def norm_and_rope(shape, x, w, pos, bpos, xb):
         rope_rows=_np(tl.apply_rope(_T(x), cos2, sin2)))
 
 
-def sequence_parallel_raises(shape, tree, impl):
-    try:
-        forward(shape, tree, np.zeros((1, 8), np.int64), impl)
-    except NotImplementedError:
-        return True
-    return False
-
-
 def cuda_default_errors(shape, tree):
     """Entry points called with no device where CUDA is absent: the error
     text of each (None if it did not raise)."""
@@ -197,6 +238,7 @@ def cuda_default_errors(shape, tree):
         "PagedEngine": lambda: PagedEngine(_cfg(shape), p),
         "LLMServer": lambda: LLMServer(LLMConfig()),
         "build_model": lambda: LLMConfig().build_model(),
+        "make_train_step": lambda: tl.make_train_step(_cfg(shape))[0](0),
     }
     out = {"cuda_available": torch.cuda.is_available()}
     for name, fn in calls.items():
@@ -206,6 +248,55 @@ def cuda_default_errors(shape, tree):
         except RuntimeError as e:
             out[name] = str(e)
     return out
+
+
+def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr):
+    """Losses of ``steps`` train steps on one batch from the carried
+    weights, and the parameters after them (nested numpy)."""
+    cfg = _cfg(shape, attention_impl=impl)
+    init_state, shard_state, train_step, dev = tl.make_train_step(
+        cfg, learning_rate=lr, remat=remat, loss_chunk=loss_chunk,
+        device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    toks = _T(tokens).to(dev)
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, toks)
+        losses.append(float(loss))
+    return losses, tl._map(_np, state[0]), (tfa.flash_fwd_launches,) + \
+        bwd_launches()
+
+
+def adamw_steps(params, grads, lr):
+    """``params`` after one ``adamw`` step per entry of ``grads``."""
+    leaves = [_T(p.copy()).requires_grad_() for p in params]
+    opt = tl.adamw(leaves, lr)
+    for step in grads:
+        for leaf, g in zip(leaves, step):
+            leaf.grad = _T(g)
+        opt.step()
+    return [_np(t) for t in leaves]
+
+
+class _Mesh:
+    """A stand-in for ``torch.distributed.DeviceMesh`` of ``n`` devices
+    (a real one of more than one device needs as many processes)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
+def train_step_mesh(shape, n):
+    """The error text ``make_train_step`` raises on a mesh of ``n`` devices
+    (None if it accepts it)."""
+    try:
+        tl.make_train_step(_cfg(shape), mesh=_Mesh(n), device="cpu")
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 # -- llm/ --------------------------------------------------------------------

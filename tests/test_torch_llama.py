@@ -120,7 +120,15 @@ def test_rms_norm_and_rope_match_jax(port):
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_attention_not_ported_yet(port, weights, impl):
-    assert port("sequence_parallel_raises", SHAPE, weights[1], impl)
+    """With no sequence-parallel mesh (the port has none yet), "ring" and
+    "ulysses" take plain attention, as JAX's ``forward(..., mesh=None)``
+    does."""
+    jp, tree = weights
+    toks = _tokens(seed=2)
+    want = jl.forward(_jcfg(attention_impl=impl), jp, jnp.asarray(toks),
+                      mesh=None)
+    got = port("forward", SHAPE, tree, toks, impl)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_entry_points_default_to_cuda(port, weights):
@@ -129,5 +137,5 @@ def test_entry_points_default_to_cuda(port, weights):
     got = port("cuda_default_errors", SHAPE, weights[1])
     if got["cuda_available"]:
         pytest.skip("this machine has CUDA: the default device is valid")
-    for name in ("init_params", "params_from_jax"):
+    for name in ("init_params", "params_from_jax", "make_train_step"):
         assert got[name] is not None and "CUDA" in got[name], name
