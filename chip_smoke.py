@@ -1,11 +1,11 @@
 """Drives the PyTorch / CUDA port (``ray_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                    # every phase; needs one CUDA card
-    python3 chip_smoke.py --phases k23,train # a subset
+    python3 chip_smoke.py                       # every phase; one CUDA card
+    python3 chip_smoke.py --phases k4,k5,ring   # a subset
 
-Builds every kernel of the serving and training paths from
-``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then runs
-five phases and fails (exit 1) if any check fails:
+Builds every kernel of the serving, training and sequence-parallel paths
+from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
+runs eight phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -31,6 +31,23 @@ five phases and fails (exit 1) if any check fails:
             falling loss, K1/K2/K3 launches per step, tokens/s, MFU, peak
             memory, one profiled step; then flash against xla on one step's
             loss and gradients.
+* k4      — the ring-hop kernel (K4) against its plain version
+            (``_chunk_xla``) at the training ring's hop (b1 h8 kvh4 s2048
+            hd128) and Llama-3-8B's heads (s512), unmasked and diagonal
+            hops, from a fresh and a carried state: o/l, m and l, kernel /
+            plain / SDPA-forward ms and the bound.
+* k5      — the ring-hop backward (K5: K2 with an fp32 dq, K3 with fp32
+            dk/dv) against ``_hop_bwd_xla`` at the same shapes, causal and
+            not, with the global lse/delta of a two-hop forward.
+* ring    — the sequence-parallel path on sp 4: four processes on the one
+            card over a gloo group (NCCL refuses two ranks on one GPU), every
+            collective staged through host memory. Ring and Ulysses attention
+            forward and backward at b1 h8 kvh4 hd128 over s 32768 against the
+            whole-sequence flash attention, K4 / K2 / K3 launches counted;
+            then ``make_train_step`` on the flagship with "ring" at b1 s8192
+            (2048 a rank), one warm-up and 3 steps, losses against a
+            single-process "flash" run. Its times are not the ring's speed:
+            the ranks time-slice the card.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -161,17 +178,20 @@ TOL_GRAD_NORM = 1e-2
 TOL_GRAD_MAX = 2e-2
 
 
-def _k23_bounds(b, h, kvh, s, hd, causal):
+def _k23_bounds(b, h, kvh, s, hd, causal, grad_bytes=2):
     """{kernel: (bound_ms, bound_by, flops, bytes)} for K2 and K3: the JAX
     cost estimates' 3 and 4 products of 2 b h hd per (q, k) pair, over the
     s(s+1)/2 pairs the causal mask keeps; q, k, v, dO, lse and delta read
-    once, the gradients written once."""
+    once, the gradients written once (``grad_bytes`` an element: 4 for the
+    ring hop's fp32 gradients, K5)."""
     pairs = s * (s + 1) / 2 if causal else s * s
     qbytes, kvbytes, rows = 2.0 * b * h * s * hd, 2.0 * b * kvh * s * hd, \
         4.0 * b * h * s
     read = 2 * qbytes + 2 * kvbytes + 2 * rows
+    w = grad_bytes / 2
     out = {}
-    for name, products, written in (("k2", 3, qbytes), ("k3", 4, 2 * kvbytes)):
+    for name, products, written in (("k2", 3, w * qbytes),
+                                    ("k3", 4, w * 2 * kvbytes)):
         flops = 2.0 * products * b * h * hd * pairs
         t_ops = flops / PEAK_BF16_FLOPS
         t_bytes = (read + written) / PEAK_HBM_BYTES
@@ -257,6 +277,168 @@ def phase_k23(dev):
             print(json.dumps({"k23": row}), flush=True)
             _check(ok, f"K2/K3 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
                    f"max|err| <= {TOL_GRAD_MAX} max|ref| or not finite: {row}")
+    return rows
+
+
+# (b, h, kvh, s, hd) of the ring-hop checks (K4, K5), sq = sk = s: the
+# training ring's hop first (the flagship's heads, 8192 tokens over sp 4),
+# then Llama-3-8B's heads
+HOP_SHAPES = [(1, 8, 4, 2048, 128), (1, 32, 8, 512, 128)]
+HOP_MAIN_SHAPE = HOP_SHAPES[0]
+TOL_M = 1e-3               # K4's running max, absolute (fp32 throughout)
+TOL_L_REL = 1e-2           # K4's denominator, relative
+
+
+def _k4_bound(b, h, kvh, s, hd, causal):
+    """(bound_ms, bound_by, flops, bytes) for one K4 call: QK^T and PV over
+    the s(s+1)/2 pairs the causal mask keeps; q, k, v (bf16) and o, m, l
+    (fp32) read once, the new o, m, l written once."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4.0 * b * h * hd * pairs
+    nbytes = 2.0 * (b * h * s * hd + 2 * b * kvh * s * hd) \
+        + 2 * 4.0 * (b * h * s * hd + 2 * b * h * s)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
+
+
+def _hop_inputs(dev, gen, b, h, kvh, s, hd):
+    """Seeded bf16 q, k, v, dO of one hop, a second K/V block, and the fresh
+    ring state (o = l = 0, m = -inf)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v, g = (randn(b, h, s, hd), randn(b, kvh, s, hd),
+                  randn(b, kvh, s, hd), randn(b, h, s, hd))
+    k0, v0 = randn(b, kvh, s, hd), randn(b, kvh, s, hd)
+    fresh = (torch.zeros((b, h, s, hd), device=dev),
+             torch.full((b, h, s, 1), float("-inf"), device=dev),
+             torch.zeros((b, h, s, 1), device=dev))
+    return q, k, v, g, k0, v0, fresh
+
+
+def phase_k4(dev):
+    """K4 against ``_chunk_xla`` on the same bf16 inputs, FULL (causal
+    False) and DIAG (causal True) hops, from a fresh state and from one a
+    previous plain hop carried."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for (b, h, kvh, s, hd) in HOP_SHAPES:
+        q, k, v, _, k0, v0, fresh = _hop_inputs(dev, gen, b, h, kvh, s, hd)
+        carried = fa._chunk_xla(q, k0, v0, *fresh, False)
+        for state_name, state in (("fresh", fresh), ("carried", carried)):
+            for causal in (False, True):
+                before = [t.clone() for t in state]
+                o, m, l = fa._flash_chunk_cuda(q, k, v, *state, causal)
+                torch.cuda.synchronize()
+                ro, rm, rl = fa._chunk_xla(q, k, v, *state, causal)
+                untouched = all(torch.equal(x, y)
+                                for x, y in zip(before, state))
+                finite = all(bool(torch.isfinite(t).all()) for t in (o, m, l))
+                # o is un-normalised (it grows with l): K1's rule holds the
+                # attention output o / l
+                # and, as K2/K3's gates do, ||err|| / ||ref|| on it: the
+                # elementwise rule's 2e-2 is near a typical |o/l| here
+                out, rout = o / l, ro / rl
+                rel_norm_o = ((out - rout).norm() / rout.norm()).item()
+                o_ok = bool(((out - rout).abs()
+                             <= TOL_O + TOL_O_REL * rout.abs()).all()) \
+                    and rel_norm_o <= TOL_GRAD_NORM
+                err_m = (m - rm).abs().max().item()
+                rel_l = ((l - rl).abs() / rl.abs()).max().item()
+                row = dict(b=b, h=h, kvh=kvh, s=s, hd=hd, causal=causal,
+                           state=state_name,
+                           err_o=(out - rout).abs().max().item(),
+                           rel_norm_o=rel_norm_o,
+                           err_o_unnormalised=(o - ro).abs().max().item(),
+                           err_m=err_m, rel_err_l=rel_l)
+                row["ms"] = _time_ms(
+                    lambda: fa._flash_chunk_cuda(q, k, v, *state, causal))
+                row["plain_ms"] = _time_ms(
+                    lambda: fa._chunk_xla(q, k, v, *state, causal), iters=5)
+                # the yardstick: SDPA's forward on the same q, k, v (it
+                # carries no state, so it does a little less work)
+                row["sdpa_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=kvh != h))
+                bms, by, flops, nbytes = _k4_bound(b, h, kvh, s, hd, causal)
+                row.update(bound_ms=bms, bound_by=by,
+                           tflops=flops / (row["ms"] * 1e-3) / 1e12)
+                rows.append(row)
+                print(json.dumps({"k4": row}), flush=True)
+                _check(untouched, f"K4 wrote over its input state: {row}")
+                _check(finite and o_ok and err_m <= TOL_M
+                       and rel_l <= TOL_L_REL,
+                       f"K4 disagrees with _chunk_xla beyond o/l {TOL_O} + "
+                       f"{TOL_O_REL}|o/l| and ||err||/||ref|| "
+                       f"{TOL_GRAD_NORM}, m {TOL_M}, l {TOL_L_REL} relative, "
+                       f"or not finite: {row}")
+    return rows
+
+
+def phase_k5(dev):
+    """K5 (``flash_hop_bwd``: K2 with an fp32 dq, K3 with fp32 dk/dv)
+    against ``_hop_bwd_xla`` on one hop, causal and not, with the global
+    lse and delta of a two-hop plain ring forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for (b, h, kvh, s, hd) in HOP_SHAPES:
+        q, k, v, g, k0, v0, fresh = _hop_inputs(dev, gen, b, h, kvh, s, hd)
+        first = fa._chunk_xla(q, k0, v0, *fresh, False)
+        for causal in (True, False):
+            o, m, l = fa._chunk_xla(q, k, v, *first, causal)
+            lse = m + torch.log(l)
+            out = (o / l).bfloat16()
+            delta = (g.float() * out.float()).sum(-1, keepdim=True)
+            got = fa.flash_hop_bwd(q, k, v, g, lse, delta, causal)
+            torch.cuda.synchronize()
+            ref = fa._hop_bwd_xla(q, k, v, g, lse, delta, causal)
+            row = dict(b=b, h=h, kvh=kvh, s=s, hd=hd, causal=causal)
+            ok = True
+            for name, x, want in zip(("dq", "dk", "dv"), got, ref):
+                mx, rel_norm, rel_max = _grad_errors(x, want)
+                row[f"err_{name}"] = mx
+                row[f"rel_norm_{name}"] = rel_norm
+                row[f"rel_max_{name}"] = rel_max
+                ok = ok and x.dtype == torch.float32 \
+                    and bool(torch.isfinite(x).all()) \
+                    and rel_norm <= TOL_GRAD_NORM and rel_max <= TOL_GRAD_MAX
+            row["k5a_ms"] = _time_ms(lambda: fa._launch_dq(
+                q, k, v, g, lse, delta, causal, dq_fp32=True))
+            row["k5b_ms"] = _time_ms(lambda: fa._launch_dkv(
+                q, k, v, g, lse, delta, causal, dkv_fp32=True))
+            row["plain_ms"] = _time_ms(lambda: fa._hop_bwd_xla(
+                q, k, v, g, lse, delta, causal), iters=3, warmup=1)
+            # the yardstick: SDPA's backward on the hop block (its own
+            # softmax, not the ring's global rows)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            sd = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=kvh != h)
+            row["sdpa_bwd_ms"] = _time_ms(lambda: torch.autograd.grad(
+                sd, (qs, ks, vs), g, retain_graph=True))
+            del sd, qs, ks, vs
+            for name, (bms, by, flops, _) in _k23_bounds(
+                    b, h, kvh, s, hd, causal, grad_bytes=4).items():
+                key = {"k2": "k5a", "k3": "k5b"}[name]
+                row[f"{key}_bound_ms"] = bms
+                row[f"{key}_bound_by"] = by
+                row[f"{key}_tflops"] = flops / (row[f"{key}_ms"] * 1e-3) / 1e12
+            rows.append(row)
+            print(json.dumps({"k5": row}), flush=True)
+            _check(ok, f"K5 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
+                   f"max|err| <= {TOL_GRAD_MAX} max|ref|, not fp32 or not "
+                   f"finite: {row}")
     return rows
 
 
@@ -645,10 +827,308 @@ def _train_profile(train_step, state, tokens):
     return out
 
 
+# the sequence-parallel path: 4 ranks on the mesh's sp axis. One card takes
+# them as 4 processes over a gloo group (NCCL refuses two ranks on one
+# GPU), with every collective staged through host memory: the kernels and
+# the ring run on the card at full width, but the ranks time-slice it, so
+# a time here is no speed of the ring.
+RING_SP = 4
+RING_LABEL = "4 ranks time-sliced on one card, gloo through host"
+RING_ATTN = (1, 8, 4, 32768, 128)  # b, h, kvh, s, hd: the flagship's heads
+RING_TRAIN_BATCH, RING_TRAIN_SEQ, RING_TRAIN_STEPS = 1, 8192, 3
+RING_TIMEOUT_S = 600
+GLOO_TIMEOUT_S = 300
+
+
+def _ring_attention_inputs(dev):
+    """The seeded global bf16 q, k, v, dO (b, s, h, hd) of the attention
+    check: the same tensors in every process on the card."""
+    import torch
+
+    b, h, kvh, s, hd = RING_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    return tuple(torch.randn((b, s, n, hd), generator=gen, device=dev)
+                 .bfloat16() for n in (h, kvh, kvh, h))
+
+
+def _ring_train_tokens(dev):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.RandomState(SEED + 7).randint(
+        0, TRAIN_CFG["vocab_size"],
+        size=(RING_TRAIN_BATCH, RING_TRAIN_SEQ))).to(dev)
+
+
+def _zero_launches(fa):
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = fa.flash_chunk_launches = 0
+
+
+def _read_launches(fa):
+    return dict(k1=fa.flash_fwd_launches, k2=fa.flash_bwd_dq_launches,
+                k3=fa.flash_bwd_dkv_launches, k4=fa.flash_chunk_launches)
+
+
+def _errors_against(got, want):
+    """What the parent needs to hold a shard against its reference: max
+    |err|, max |ref|, the sums of squares, and K1's output rule."""
+    got, want = got.float(), want.float()
+    err = got - want
+    return dict(max_err=err.abs().max().item(),
+                max_ref=want.abs().max().item(),
+                sq_err=err.square().sum().item(),
+                sq_ref=want.square().sum().item(),
+                o_rule=bool((err.abs() <= TOL_O + TOL_O_REL * want.abs())
+                            .all()),
+                finite=bool(got.isfinite().all()))
+
+
+def _ring_rank_attention(dev, mesh, impl):
+    """``impl``'s sharded attention forward and backward on this rank's
+    shard of the seeded inputs (causal), launches counted from zero around
+    it; then this shard of the whole-sequence ``flash_attention`` (K1, K2,
+    K3) on the same inputs, to hold it against."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.mesh import axis_index
+    from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    fn = {"ring": ring_attention_sharded,
+          "ulysses": ulysses_attention_sharded}[impl]
+    q, k, v, g = _ring_attention_inputs(dev)
+    n = q.shape[1] // RING_SP
+    idx = axis_index(mesh, "sp")
+    cut = slice(idx * n, (idx + 1) * n)
+    qs, ks, vs = (t[:, cut].contiguous().requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    _zero_launches(fa)
+    t = time.monotonic()
+    out = fn(qs, ks, vs, mesh, causal=True)
+    out.backward(g[:, cut].contiguous())
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t) * 1e3
+    launches = _read_launches(fa)
+    qf, kf, vf = (t.detach().requires_grad_() for t in (q, k, v))
+    ref = flash_attention(qf, kf, vf, causal=True)
+    ref.backward(g)
+    return dict(ms=ms, launches=launches, errors={
+        name: _errors_against(x, w[:, cut]) for name, x, w in (
+            ("out", out, ref), ("dq", qs.grad, qf.grad),
+            ("dk", ks.grad, kf.grad), ("dv", vs.grad, vf.grad))})
+
+
+def _ring_rank_train(dev, mesh):
+    """``make_train_step`` on the flagship with "ring" on the sp mesh: one
+    warm-up step, then RING_TRAIN_STEPS with the launches counted from
+    zero."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="ring")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _ring_train_tokens(data_dev)
+    state, loss = train_step(state, tokens)  # warm-up
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    _zero_launches(fa)
+    t = time.monotonic()
+    for _ in range(RING_TRAIN_STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return dict(losses=losses, launches=_read_launches(fa),
+                step_ms=(time.monotonic() - t) * 1e3 / RING_TRAIN_STEPS,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _ring_rank(rank, store, device, results):
+    """One rank of the sp mesh on ``device`` (every rank on the one card):
+    joins the gloo group, runs the attention checks and the training run,
+    and puts its results (or its traceback) on ``results``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=RING_SP,
+            timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        mesh = MeshSpec(sp=RING_SP).build()
+        out = {impl: _ring_rank_attention(dev, mesh, impl)
+               for impl in ("ring", "ulysses")}
+        torch.cuda.empty_cache()
+        out["train"] = _ring_rank_train(dev, mesh)
+        results.put((rank, True, out))
+    except Exception:  # the parent fails the run with this traceback
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _flash_train_losses(dev):
+    """The single-process reference: the same seed, batch and steps with
+    attention_impl="flash"."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _ring_train_tokens(data_dev)
+    losses = []
+    for _ in range(1 + RING_TRAIN_STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_ring(dev):
+    """The sequence-parallel path on 4 ranks (``RING_LABEL``): ring and
+    Ulysses attention at full width against the whole-sequence flash
+    attention, K4 / K2 / K3 launches counted; then the flagship trained on
+    sp 4 with "ring" against a single-process "flash" run."""
+    import multiprocessing
+    import queue
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    flash_losses = _flash_train_losses(dev)
+    ctx = multiprocessing.get_context("spawn")
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_ring_rank, args=(
+        r, os.path.join(store_dir, "store"), str(dev), results))
+        for r in range(RING_SP)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    ranks, errors = {}, []
+    try:
+        for _ in range(RING_SP):
+            try:
+                rank, ok, value = results.get(timeout=RING_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"no result in {RING_TIMEOUT_S} s")
+                break
+            if ok:
+                ranks[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 1)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(store_dir, ignore_errors=True)
+    _check(not errors, "ring phase: a rank failed:\n" + "\n".join(errors))
+    out = dict(label=RING_LABEL, ranks=RING_SP, wall_s=time.monotonic() - t0)
+
+    b, h, kvh, s, hd = RING_ATTN
+    for impl in ("ring", "ulysses"):
+        per = [ranks[r][impl] for r in range(RING_SP)]
+        launches = {k: sum(p["launches"][k] for p in per)
+                    for k in per[0]["launches"]}
+        row = dict(shape=dict(b=b, h=h, kvh=kvh, s=s, hd=hd, sp=RING_SP),
+                   ms_per_rank=[p["ms"] for p in per], launches=launches,
+                   launches_per_rank=[p["launches"] for p in per])
+        ok = True
+        for name in ("out", "dq", "dk", "dv"):
+            e = [p["errors"][name] for p in per]
+            mx = max(x["max_err"] for x in e)
+            rel_norm = (sum(x["sq_err"] for x in e)
+                        / sum(x["sq_ref"] for x in e)) ** 0.5
+            rel_max = mx / max(x["max_ref"] for x in e)
+            row[f"err_{name}"], row[f"rel_norm_{name}"] = mx, rel_norm
+            row[f"rel_max_{name}"] = rel_max
+            ok = ok and all(x["finite"] for x in e)
+            if name == "out":
+                ok = ok and all(x["o_rule"] for x in e) \
+                    and rel_norm <= TOL_GRAD_NORM
+            else:
+                ok = ok and rel_norm <= TOL_GRAD_NORM \
+                    and rel_max <= TOL_GRAD_MAX
+        out[impl] = row
+        print(json.dumps({f"ring_attention_{impl}": row}), flush=True)
+        _check(ok, f"{impl} attention on sp {RING_SP} disagrees with the "
+               f"whole-sequence flash attention beyond K1's rule and "
+               f"||err||/||ref|| {TOL_GRAD_NORM} (out) or K2-K3's gates: "
+               f"{row}")
+        # ring: rank idx runs idx + 1 non-skipped hops each way; Ulysses
+        # one flash attention a rank
+        want = (dict(k1=0, k2=10, k3=10, k4=10) if impl == "ring"
+                else dict(k1=RING_SP, k2=RING_SP, k3=RING_SP, k4=0))
+        _check(launches == want, f"{impl} launches {launches}, want {want}")
+
+    per = [ranks[r]["train"] for r in range(RING_SP)]
+    losses = per[0]["losses"]
+    launches = {k: sum(p["launches"][k] for p in per)
+                for k in per[0]["launches"]}
+    hops = RING_SP * (RING_SP + 1) // 2  # non-skipped hops over the ranks
+    layers = TRAIN_CFG["n_layers"]
+    train = dict(
+        config=dict(TRAIN_CFG, attention_impl="ring", remat=TRAIN_REMAT,
+                    loss_chunk=0, batch=RING_TRAIN_BATCH, seq=RING_TRAIN_SEQ,
+                    sp=RING_SP, lr=TRAIN_LR),
+        losses=losses, flash_losses=flash_losses,
+        loss_rel_diff=[abs(a - b) / abs(b)
+                       for a, b in zip(losses, flash_losses)],
+        step_ms=[p["step_ms"] for p in per], step_ms_label=RING_LABEL,
+        peak_memory_gb=[p["peak_memory_gb"] for p in per],
+        launches=launches,
+        launches_per_step={k: v / RING_TRAIN_STEPS
+                           for k, v in launches.items()})
+    out["train"] = train
+    print(json.dumps({"ring_train": train}), flush=True)
+    print(f"ring train step: {max(train['step_ms']):.1f} ms ({RING_LABEL})",
+          flush=True)
+    _check(all(p["losses"] == losses for p in per),
+           f"the ranks disagree on the loss: {[p['losses'] for p in per]}")
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"ring train losses not finite and falling: {losses}")
+    _check(max(train["loss_rel_diff"]) <= TOL_LOSS_REL,
+           f"ring vs flash losses beyond {TOL_LOSS_REL} relative: {losses} "
+           f"vs {flash_losses}")
+    # K4 twice a layer and hop (forward and the "dots" recompute), K2 / K3
+    # once
+    want = dict(k1=0, k2=layers * hops * RING_TRAIN_STEPS,
+                k3=layers * hops * RING_TRAIN_STEPS,
+                k4=2 * layers * hops * RING_TRAIN_STEPS)
+    _check(launches == want, f"ring train launches {launches} in "
+           f"{RING_TRAIN_STEPS} steps, want {want}")
+    return out
+
+
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
-    phase's timed steps)."""
+    phase's timed steps; K4, K5a, K5b: the ring phase's timed training
+    steps, over its 4 ranks)."""
     line = []
     if "k1" in report and "serve" in report:
         row = next(r for r in report["k1"] if r["causal"] and (
@@ -681,10 +1161,46 @@ def kernels_line(report):
                 # SDPA's backward computes K2's and K3's work in one call
                 "library_ms": row["sdpa_bwd_ms"],
             })
+    # K4 and K5 at the training ring's unmasked hop, with the launches of
+    # the ring phase's timed training steps (over the 4 ranks)
+    if "k4" in report and "ring" in report:
+        row = next(r for r in report["k4"] if not r["causal"]
+                   and r["state"] == "carried" and (
+                       r["b"], r["h"], r["kvh"], r["s"], r["hd"])
+                   == HOP_MAIN_SHAPE)
+        line.append({
+            "name": "flash_chunk (K4)", "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_chunk.cu",
+            "replaces": "ray_tpu/ops/flash_attention.py:541",
+            "launches": report["ring"]["train"]["launches"]["k4"],
+            "max_abs_err": max(r["err_o"] for r in report["k4"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            # SDPA's forward carries no state: a little less work
+            "library_ms": row["sdpa_ms"],
+        })
+    if "k5" in report and "ring" in report:
+        row = next(r for r in report["k5"] if not r["causal"] and (
+            r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == HOP_MAIN_SHAPE)
+        for key, counter, name, line_no, errs in (
+                ("k5a", "k2", "flash_bwd_dq fp32 (K5a)", 743, ("err_dq",)),
+                ("k5b", "k3", "flash_bwd_dkv fp32 (K5b)", 770,
+                 ("err_dk", "err_dv"))):
+            line.append({
+                "name": name, "route": "cuda",
+                "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
+                "launches": report["ring"]["train"]["launches"][counter],
+                "max_abs_err": max(r[e] for r in report["k5"] for e in errs),
+                "ms": row[f"{key}_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row[f"{key}_bound_ms"],
+                "bound_by": row[f"{key}_bound_by"],
+                "library_ms": row["sdpa_bwd_ms"],
+            })
     return line
 
 
-PHASES = ("k1", "k23", "forward", "serve", "train")
+PHASES = ("k1", "k23", "k4", "k5", "forward", "serve", "train", "ring")
 
 
 def main(argv=None) -> int:
@@ -727,10 +1243,17 @@ def main(argv=None) -> int:
         report["k1"] = phase_k1(dev)
     if "k23" in phases:
         report["k23"] = phase_k23(dev)
+    if "k4" in phases:
+        report["k4"] = phase_k4(dev)
+    if "k5" in phases:
+        report["k5"] = phase_k5(dev)
     if phases & {"forward", "serve"}:
         report.update(phase_model(dev, phases))
     if "train" in phases:
         report["train"] = phase_train(dev)
+    if "ring" in phases:
+        torch.cuda.empty_cache()
+        report["ring"] = phase_ring(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

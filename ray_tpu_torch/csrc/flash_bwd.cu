@@ -7,9 +7,10 @@
 //   dq = ds k * scale,   dk = ds^T q * scale,   dv = p^T dO,
 // for q (b, h, sq, hd), k/v (b, kvh, sk, hd), query head hi reading kv head
 // hi / (h / kvh). lse and delta = rowsum(dO * o) come in as (b, h, sq) fp32.
-// sq and sk are separate and dq may be written in fp32, so the ring-hop
-// backward (_hop_bwd_tpu: K2/K3 against one K/V block with global lse and
-// delta, dq in fp32) is a launch of these same kernels.
+// sq and sk are separate and dq, dk and dv may be written in fp32, so the
+// ring-hop backward (K5: _hop_bwd_tpu, K2/K3 against one K/V block with the
+// ring's global lse and delta, gradients in fp32) is a launch of these same
+// kernels.
 //
 // What bounds them on an H100: the tensor-core operations. K2 does three
 // products per (q, k) pair (QK^T, dO V^T, dS K), K3 four (K Q^T, V dO^T,
@@ -33,13 +34,16 @@
 //   and accumulates dK and dV in fp32 registers over the rep query heads of
 //   its kv head and, for each, over the q-tiles from the causal start; so
 //   the GQA reduction happens in the kernel, with no atomics and no
-//   b h s hd fp32 intermediates, and dk/dv are written once in k/v's dtype.
+//   b h s hd fp32 intermediates, and dk/dv are written once (in k/v's
+//   dtype, or fp32).
 //   The kernel computes S^T = K Q^T with the keys as rows, so P^T and dS^T
 //   land in the accumulator layout and feed the A operand of P^T dO and
 //   dS^T Q without a trip through shared memory. At hd 128 the two
 //   accumulators take 128 registers a thread, so K and V stay in shared
 //   memory (fragments read per q-tile) and the q-tile is taken 32 rows at
-//   a time; the four tiles (K, V, Q, dO) need 70 KB of dynamic shared memory;
+//   a time; the four tiles (K, V, Q, dO) need 70 KB of dynamic shared memory.
+//   The fp32-output variant (DKV_F32, the ring hop's: its dk/dv accumulate
+//   over hops in fp32) differs only in its stores;
 // - causal blocks stop at (K2) or start from (K3) the diagonal tile;
 // - any sq and sk work: rows past either are zero-filled on load and masked
 //   (p = 0) in the products, and never stored. An uninitialised NaN times a
@@ -76,18 +80,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
-}
-
-// A fragment (16x16, row-major) of rows [r0, r0 + 16), columns
-// [c0, c0 + 16) of a shared tile with row stride LD.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* t, int r0, int c0,
-                                       int g, int tig) {
-  a[0] = ld32(&t[(r0 + g) * LD + c0 + tig * 2]);
-  a[1] = ld32(&t[(r0 + g + 8) * LD + c0 + tig * 2]);
-  a[2] = ld32(&t[(r0 + g) * LD + c0 + 8 + tig * 2]);
-  a[3] = ld32(&t[(r0 + g + 8) * LD + c0 + 8 + tig * 2]);
 }
 
 // A fragments of one 16-wide k-step from the fp32 accumulators of the two
@@ -246,17 +238,16 @@ constexpr size_t dkv_smem_bytes() {
          2 * BQ * sizeof(float);
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, bool CAUSAL, bool DKV_F32>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int h, int kvh, int sq,
-                     int sk, float scale, float scale_log2) {
+                     const float* __restrict__ delta, void* __restrict__ dk,
+                     void* __restrict__ dv, int h, int kvh, int sq, int sk,
+                     float scale, float scale_log2) {
   constexpr int LD = HD + 8;
   constexpr int KSTEPS = HD / 16;
   constexpr int NT_O = HD / 8;    // dk/dv n-tiles per warp
@@ -373,10 +364,18 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int dt = 0; dt < NT_O; ++dt) {
       const size_t at = row + dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack_bf16(dka[dt][2 * r] * scale, dka[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack_bf16(dva[dt][2 * r], dva[dt][2 * r + 1]);
+      const float k0 = dka[dt][2 * r] * scale, k1 = dka[dt][2 * r + 1] * scale;
+      if (DKV_F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + at) =
+            make_float2(k0, k1);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + at) =
+            make_float2(dva[dt][2 * r], dva[dt][2 * r + 1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dk) + at) =
+            pack_bf16(k0, k1);
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dv) + at) =
+            pack_bf16(dva[dt][2 * r], dva[dt][2 * r + 1]);
+      }
     }
   }
 }
@@ -424,20 +423,29 @@ cudaError_t dispatch_dq(const Args& a, void* dq, int causal, int dq_f32,
                 : launch_dq<HD, false, false>(a, dq, st);
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, bool CAUSAL, bool DKV_F32>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
-  auto kernel = flash_bwd_dkv_kernel<HD, CAUSAL>;
+  auto kernel = flash_bwd_dkv_kernel<HD, CAUSAL, DKV_F32>;
   // above 48 KB only as opted-in dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sk + BN - 1) / BN, a.kvh, a.b);
-  kernel<<<grid, THREADS, smem, st>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.h,
-      a.kvh, a.sq, a.sk, a.scale, a.scale_log2);
+  kernel<<<grid, THREADS, smem, st>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
+                                      dk, dv, a.h, a.kvh, a.sq, a.sk, a.scale,
+                                      a.scale_log2);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_dkv(const Args& a, void* dk, void* dv, int causal,
+                         int dkv_f32, cudaStream_t st) {
+  if (causal)
+    return dkv_f32 ? launch_dkv<HD, true, true>(a, dk, dv, st)
+                   : launch_dkv<HD, true, false>(a, dk, dv, st);
+  return dkv_f32 ? launch_dkv<HD, false, true>(a, dk, dv, st)
+                 : launch_dkv<HD, false, false>(a, dk, dv, st);
 }
 
 bool bad_shape(int b, int h, int kvh, int sq, int sk) {
@@ -464,24 +472,20 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// Same inputs; dk, dv (b, kvh, sk, hd) bf16, summed over each kv head's
-// query heads. Returns the cudaError_t of the launch (0 = launched).
+// Same inputs; dk, dv (b, kvh, sk, hd) bf16, or fp32 when dkv_fp32, summed
+// over each kv head's query heads. Returns the cudaError_t of the launch
+// (0 = launched).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int b,
                              int h, int kvh, int sq, int sk, int hd,
-                             int causal, void* stream) {
+                             int causal, int dkv_fp32, void* stream) {
   if (bad_shape(b, h, kvh, sq, sk)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, b, h, kvh, sq, sk, hd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64:
-      return causal ? (int)launch_dkv<64, true>(a, dk, dv, st)
-                    : (int)launch_dkv<64, false>(a, dk, dv, st);
-    case 128:
-      return causal ? (int)launch_dkv<128, true>(a, dk, dv, st)
-                    : (int)launch_dkv<128, false>(a, dk, dv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 64: return (int)dispatch_dkv<64>(a, dk, dv, causal, dkv_fp32, st);
+    case 128: return (int)dispatch_dkv<128>(a, dk, dv, causal, dkv_fp32, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,29 +40,8 @@ namespace {
 constexpr int BM = 64;        // query rows per block (16 per warp)
 constexpr int BN = 64;        // keys per K/V tile
 constexpr int THREADS = 128;  // 4 warps
-constexpr float NEG_INF = -1e30f;  // the TPU kernel's finite mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// rows [r0, r0 + 64) of V (s, HD), transposed into dst[HD][64 + 8] so that
-// the PV B-fragments are 32-bit words; neighbouring threads take
-// neighbouring keys, which keeps the transposing stores conflict-free.
-template <int HD>
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src, int r0,
-                                            int s) {
-  constexpr int CH = HD / 8;
-  constexpr int LD = BN + 8;
-  for (int idx = threadIdx.x; idx < BN * CH; idx += THREADS) {
-    const int r = idx % BN, c = idx / BN;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < s)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c * 8 + i) * LD + r] = e[i];
-  }
-}
 
 template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
@@ -74,7 +53,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KLD = HD + 8;   // padded row of sK: conflict-free fragments
   constexpr int VLD = BN + 8;   // padded row of sVt
   constexpr int KSTEPS = HD / 16;
-  constexpr int NT_S = BN / 8;  // score n-tiles per warp
   constexpr int NT_O = HD / 8;  // output n-tiles per warp
   __shared__ __align__(16) __nv_bfloat16 sK[BN * KLD];
   __shared__ __align__(16) __nv_bfloat16 sVt[HD * VLD];
@@ -95,12 +73,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = warp * 16 + g;
   uint32_t qf[KSTEPS][4];
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    qf[ks][0] = ld32(&sK[r0 * KLD + ks * 16 + tig * 2]);
-    qf[ks][1] = ld32(&sK[(r0 + 8) * KLD + ks * 16 + tig * 2]);
-    qf[ks][2] = ld32(&sK[r0 * KLD + ks * 16 + 8 + tig * 2]);
-    qf[ks][3] = ld32(&sK[(r0 + 8) * KLD + ks * 16 + 8 + tig * 2]);
-  }
+  for (int ks = 0; ks < KSTEPS; ++ks)
+    load_a<KLD>(qf[ks], sK, warp * 16, ks * 16, g, tig);
   __syncthreads();
 
   float oacc[NT_O][4];
@@ -119,75 +93,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * BN;
     load_rows<HD, BN, THREADS>(sK, kp, n0, s);
-    load_rows_t<HD>(sVt, vp, n0, s);
+    load_rows_t<HD, BN, THREADS>(sVt, vp, n0, s);
     __syncthreads();
-
-    float sacc[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const __nv_bfloat16* kr = &sK[(nt * 8 + g) * KLD + ks * 16 + tig * 2];
-        mma_bf16(sacc[nt], qf[ks], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale into the log2 domain, mask, and take the row max
-    float mnew[2] = {mrow[0], mrow[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + nt * 8 + tig * 2 + (e & 1);
-        const int r = e >> 1;
-        float x = sacc[nt][e] * scale_log2;
-        if (key >= s || (CAUSAL && key > qrow[r])) x = NEG_INF;
-        sacc[nt][e] = x;
-        mnew[r] = fmaxf(mnew[r], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 1));
-      mnew[r] = fmaxf(mnew[r], __shfl_xor_sync(0xffffffffu, mnew[r], 2));
-      corr[r] = exp2f(mrow[r] - mnew[r]);
-      mrow[r] = mnew[r];
-      lrow[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sacc[nt][e] - mrow[e >> 1]);
-        sacc[nt][e] = p;
-        lrow[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < NT_O; ++dt) {
-      oacc[dt][0] *= corr[0];
-      oacc[dt][1] *= corr[0];
-      oacc[dt][2] *= corr[1];
-      oacc[dt][3] *= corr[1];
-    }
-
-    // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are the A
-    // fragment of a 16-key step
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      pa[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      pa[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < NT_O; ++dt) {
-        const __nv_bfloat16* vr = &sVt[(dt * 8 + g) * VLD + kk * 16 + tig * 2];
-        mma_bf16(oacc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    online_softmax_tile<HD, BN, CAUSAL>(qf, sK, sVt, oacc, mrow, lrow, qrow,
+                                        n0, s, scale_log2);
     __syncthreads();  // the next tile overwrites sK / sVt
   }
 

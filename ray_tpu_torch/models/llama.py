@@ -11,12 +11,20 @@ follow Llama-2/3.
 ``attention_impl``: "xla" is plain PyTorch attention (the name is the JAX
 package's); "flash" projects straight to (b, h, s, hd) and calls the flash
 attention kernels on CUDA (K1 forward, K2/K3 backward). "ring" and
-"ulysses" shard the sequence over a mesh's sp axis in the JAX package and
-take plain attention without one; the port has no sequence-parallel mesh
-yet, so they always take plain attention.
+"ulysses" shard the sequence over a mesh's sp axis
+(``parallel/ring_attention.py``: K4 forward, K5 backward on CUDA;
+``parallel/ulysses.py``: all-to-alls around K1-K3) and take plain
+attention without one (mesh None or sp 1), as in the JAX package.
 
-``make_train_step`` is the single-device training step: AdamW as optax's,
-the chunked loss, and the remat modes as ``torch.utils.checkpoint``.
+On a mesh (``parallel/mesh.py``: one process a position) the weights are
+replicated: the batch is sharded over dp and the sequence over sp, and
+each rank computes its own (b/dp, s/sp) block. fsdp, tp and pp shard the
+weights in the JAX package; the port raises ``NotImplementedError`` on
+them (the sharded-training slice).
+
+``make_train_step`` is the training step: AdamW as optax's, the chunked
+loss, the remat modes as ``torch.utils.checkpoint``, and on a dp x sp mesh
+one all-reduce of the gradients a step.
 """
 
 from __future__ import annotations
@@ -27,11 +35,13 @@ from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.parallel.mesh import axis_index, mesh_shape, stage, to_wire
 
 
 @dataclass(frozen=True)
@@ -48,8 +58,8 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16  # activation/compute dtype
     param_dtype: Any = torch.float32
     # attention implementation: "xla" (plain torch), "flash" (the flash
-    # attention kernels on CUDA); "ring" / "ulysses" take "xla" until the
-    # port has a sequence-parallel mesh
+    # attention kernels on CUDA), "ring" / "ulysses" (sequence parallel over
+    # a mesh's sp axis; "xla" without one)
     attention_impl: str = "xla"
 
     @property
@@ -203,10 +213,19 @@ def _attention_xla(q, k, v, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention(cfg: LlamaConfig, q, k, v):
-    # "ring" / "ulysses" shard over a mesh's sp axis in the JAX package and
-    # fall through to plain attention when there is none (mesh None or
-    # sp == 1); the port has no sequence-parallel mesh yet
+def attention(cfg: LlamaConfig, q, k, v, mesh=None):
+    """q: (b, s, h, hd), k/v (b, s, kvh, hd): on a mesh with sp > 1, this
+    rank's sequence shard."""
+    sp = mesh_shape(mesh)["sp"]
+    if cfg.attention_impl == "ring" and sp > 1:
+        from ray_tpu_torch.parallel.ring_attention import \
+            ring_attention_sharded
+
+        return ring_attention_sharded(q, k, v, mesh, causal=True)
+    if cfg.attention_impl == "ulysses" and sp > 1:
+        from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+        return ulysses_attention_sharded(q, k, v, mesh, causal=True)
     if cfg.attention_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
@@ -222,7 +241,7 @@ def _ffn(cfg: LlamaConfig, h, p):
     return (gate * up) @ p["w2"].to(dt)
 
 
-def _layer(cfg: LlamaConfig, h, layer_params, cos, sin,
+def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
            remat_ffn: bool = False):
     p = layer_params
     hd = cfg.head_dim
@@ -253,7 +272,7 @@ def _layer(cfg: LlamaConfig, h, layer_params, cos, sin,
         v = (x @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        attn = attention(cfg, q, k, v)
+        attn = attention(cfg, q, k, v, mesh)
         attn = attn.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(dt)
     h = h + attn
     if remat_ffn:
@@ -262,16 +281,60 @@ def _layer(cfg: LlamaConfig, h, layer_params, cos, sin,
     return h + _ffn(cfg, h, p)
 
 
+def _check_mesh(cfg: LlamaConfig, mesh) -> Dict[str, int]:
+    """The mesh's axis sizes; raises on a mesh the port does not run."""
+    shape = mesh_shape(mesh)
+    sharded = {a: shape[a] for a in ("fsdp", "tp", "pp") if shape[a] > 1}
+    if sharded:
+        raise NotImplementedError(
+            f"a mesh with {sharded} shards the weights: that needs the "
+            "sharded training slice (FSDP / tensor / pipeline parallel), "
+            "not ported yet; dp and sp are")
+    if shape["sp"] > 1 and cfg.attention_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"attention_impl {cfg.attention_impl!r} attends within one "
+            f"rank's block; a sequence sharded over sp={shape['sp']} needs "
+            "'ring' or 'ulysses'")
+    return shape
+
+
+def _mesh_block(cfg: LlamaConfig, mesh, b: int, s: int):
+    """(rows, positions): the slices of a global (b, s) batch that this
+    rank computes on ``mesh``, the batch over dp and the sequence over
+    sp, as the JAX package's sharding (``P(BATCH_AXES, "sp")``) places
+    them."""
+    shape = _check_mesh(cfg, mesh)
+    dp, sp = shape["dp"], shape["sp"]
+    if b % dp or s % sp:
+        raise ValueError(f"batch {b} and sequence {s} must divide by dp={dp} "
+                         f"and sp={sp}")
+    bi, si = axis_index(mesh, "dp"), axis_index(mesh, "sp")
+    return (slice(bi * b // dp, (bi + 1) * b // dp),
+            slice(si * s // sp, (si + 1) * s // sp))
+
+
 def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (b, s) int → logits (b, s, vocab) in fp32."""
+            mesh=None, positions: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """tokens (b, s) int → logits (b, s, vocab) in fp32.
+
+    On a ``mesh`` (dp x sp; every rank calls it together) ``tokens`` is the
+    GLOBAL batch, as JAX's global array, and the result is this rank's
+    block of the logits: (b/dp, s/sp, vocab) at rows [dp_idx·b/dp, ...)
+    and positions [sp_idx·s/sp, ...), RoPE'd at those global positions."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)
+    if mesh is not None:
+        rows, cols = _mesh_block(cfg, mesh, b, s)
+        tokens = tokens[rows, cols]
+        positions = (positions[rows] if positions.dim() == 2
+                     else positions)[..., cols]
     dt = cfg.dtype
     h = params["tok_emb"].to(dt)[tokens]
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
     for i in range(cfg.n_layers):
-        h = _layer(cfg, h, layer_params(params, i), cos, sin)
+        h = _layer(cfg, mesh, h, layer_params(params, i), cos, sin)
     h = rms_norm(h, params["norm"], cfg.norm_eps)
     return (h @ params["lm_head"].to(dt)).float()
 
@@ -319,11 +382,11 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_layer(cfg: LlamaConfig, remat):
+def _remat_layer(cfg: LlamaConfig, mesh, remat):
     """``_layer`` under one remat mode of ``make_train_step``."""
     if remat == "ffn":
-        return partial(_layer, cfg, remat_ffn=True)
-    layer = partial(_layer, cfg)
+        return partial(_layer, cfg, mesh, remat_ffn=True)
+    layer = partial(_layer, cfg, mesh)
     if remat == "dots":
         return partial(checkpoint, layer, use_reentrant=False,
                        preserve_rng_state=False,
@@ -335,10 +398,9 @@ def _remat_layer(cfg: LlamaConfig, remat):
     return layer
 
 
-def _backbone(cfg: LlamaConfig, params, tokens, layer):
+def _backbone(cfg: LlamaConfig, params, tokens, positions, layer):
     h = params["tok_emb"].to(cfg.dtype)[tokens]
-    cos, sin = rope_tables(cfg, torch.arange(tokens.shape[1],
-                                             device=tokens.device))
+    cos, sin = rope_tables(cfg, positions)
     # one unbind per stacked weight: its backward stacks the layers'
     # gradients once, where indexing would make a full-size zero tensor for
     # every layer
@@ -358,7 +420,7 @@ def _chunk_nll(cfg: LlamaConfig, lm_head, h_c, tgt_c, mask_c):
 
 
 def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
-                 loss_chunk: int = 512) -> torch.Tensor:
+                 loss_chunk: int = 512, mesh=None) -> torch.Tensor:
     """The loss ``make_train_step`` differentiates: next-token NLL, mean over
     the positions that have a target.
 
@@ -367,13 +429,26 @@ def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
     see s, not s-1). The (b, s, vocab) fp32 logits are the largest
     activations: when ``loss_chunk`` divides s into more than one chunk,
     each chunk's logits are made under ``torch.utils.checkpoint``, so only
-    one chunk's are live in either direction."""
-    h = _backbone(cfg, params, tokens, _remat_layer(cfg, remat))
+    one chunk's are live in either direction.
+
+    On a ``mesh`` ``tokens`` is the global batch: the targets are built on
+    it before this rank's block is cut out (so a shard's last position
+    targets the next shard's first token), and the block's NLL sum is
+    divided by the GLOBAL count of positions with a target, so the ranks'
+    losses add up to the global mean."""
     b, s = tokens.shape
     targets = torch.cat([tokens[:, 1:], torch.full(
         (b, 1), -1, dtype=tokens.dtype, device=tokens.device)], dim=1)
+    denom = (targets >= 0).float().sum()
+    positions = torch.arange(s, device=tokens.device)
+    if mesh is not None:
+        rows, cols = _mesh_block(cfg, mesh, b, s)
+        tokens, targets = tokens[rows, cols], targets[rows, cols]
+        positions = positions[cols]
+        s = tokens.shape[1]
+    h = _backbone(cfg, params, tokens, positions,
+                  _remat_layer(cfg, mesh, remat))
     mask = (targets >= 0).float()
-    denom = mask.sum()
     chunk = loss_chunk
     if chunk and s % chunk == 0 and s > chunk:
         total = 0.0
@@ -398,26 +473,41 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _all_reduce_sum(tensors):
+    """Sum each tensor over every rank of the default group, in place, as
+    one flat fp32 buffer (one collective; through host memory on gloo)."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    wire = to_wire(flat, stage(None))
+    dist.all_reduce(wire)
+    flat = wire.to(flat.device)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
                     remat=False, loss_chunk: int = 512, device=None):
-    """Build (init_state, shard_state, train_step, data_device) on one device.
+    """Build (init_state, shard_state, train_step, data_device).
 
-    The JAX package's ``make_train_step`` on a one-device mesh. ``mesh`` is
-    None or a ``torch.distributed.DeviceMesh`` of one device; a larger mesh
-    (the FSDP / tensor-parallel path) raises ``NotImplementedError``.
-    ``device`` defaults to CUDA. State = (params, optimizer): AdamW as
-    ``optax.adamw(learning_rate)``. ``remat`` selects the memory / FLOPs
-    trade per layer, each a ``torch.utils.checkpoint`` (non-reentrant):
+    The JAX package's ``make_train_step`` on one device (``mesh`` None or
+    of one device) or on a ``DeviceMesh`` with dp and sp axes
+    (``MeshSpec(dp=.., sp=..).build()``, one process a position; every rank
+    calls each function together). A mesh with fsdp, tp or pp above 1 (the
+    sharded-training path) raises ``NotImplementedError``. ``device``
+    defaults to CUDA. State = (params, optimizer): AdamW as
+    ``optax.adamw(learning_rate)``, the parameters replicated on every rank
+    (from the same seed or the same parameter dict). ``remat`` selects the
+    memory / FLOPs trade per layer, each a ``torch.utils.checkpoint``
+    (non-reentrant):
       False  — save all layer activations
       "ffn"  — recompute only the FFN block
       "dots" — save the weight products, recompute the rest (JAX's
-               ``dots_with_no_batch_dims_saveable``)
+               ``dots_with_no_batch_dims_saveable``); a ring layer's
+               forward, and its transfers, run again in the recompute
       True   — recompute the whole layer
     """
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"make_train_step on a mesh of {mesh.size()} devices needs the "
-            "sharded training slice (FSDP / tensor parallel), not ported yet")
+    ranks = math.prod(_check_mesh(cfg, mesh).values())
     dev = resolve_device(device)
 
     def init_state(seed_or_params=0):
@@ -438,16 +528,22 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
         return state
 
     def train_step(state, tokens):
-        """One AdamW step on ``tokens`` (b, s) on the device. Parameters
+        """One AdamW step on ``tokens`` (b, s) on the device: on a mesh the
+        GLOBAL batch, of which each rank computes its block. Parameters
         and moments are updated in place, the port's stand-in for JAX's
-        donated state: the step keeps no second copy. Returns (state, loss),
-        the loss a 0-dim tensor that is not synchronised."""
+        donated state: the step keeps no second copy. On a mesh the
+        gradients and the loss are summed over the ranks before the
+        update. Returns (state, loss), the loss a 0-dim tensor (the global
+        one) that is not synchronised."""
         params, opt = state
         opt.zero_grad(set_to_none=True)
-        loss = compute_loss(cfg, params, tokens, remat, loss_chunk)
+        loss = compute_loss(cfg, params, tokens, remat, loss_chunk, mesh)
         loss.backward()
+        loss = loss.detach()
+        if ranks > 1:
+            _all_reduce_sum([t.grad for t in _leaves(params)] + [loss])
         opt.step()
-        return state, loss.detach()
+        return state, loss
 
     return init_state, shard_state, train_step, dev
 

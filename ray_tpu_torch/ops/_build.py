@@ -2,8 +2,9 @@
 source hash, and loads them with ctypes.
 
 Each kernel source under ``ray_tpu_torch/csrc/`` exposes a plain C entry
-point (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3; both include
-``mma_tile.cuh``), so the build is one ``nvcc`` call per source with no
+point (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3, and K5 as their
+fp32-output launches; ``flash_chunk.cu``: K4; all include ``mma_tile.cuh``),
+so the build is one ``nvcc`` call per source with no
 PyTorch headers (seconds, not the minutes a torch-extension build takes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -46,8 +47,13 @@ _ENTRIES = {
         # dq_fp32, stream
         "flash_bwd_dq": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
         # q, k, v, dO, lse, delta, dk, dv, b, h, kvh, sq, sk, hd, causal,
-        # stream
-        "flash_bwd_dkv": (ctypes.c_int, [_P] * 8 + [_I] * 7 + [_P]),
+        # dkv_fp32, stream
+        "flash_bwd_dkv": (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_P]),
+    },
+    "flash_chunk": {
+        # q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, b, h, kvh, sq, sk,
+        # hd, causal, stream
+        "flash_chunk_bf16": (ctypes.c_int, [_P] * 9 + [_I] * 7 + [_P]),
     },
 }
 

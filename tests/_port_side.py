@@ -9,12 +9,16 @@ the worker and compares like with like on the same numpy inputs.
 from __future__ import annotations
 
 import asyncio
+import atexit
+import math
 import os
 import subprocess
 import sys
 
 import numpy as np
 import torch
+
+import _port_ranks
 
 from ray_tpu_torch.llm import LLMConfig, LLMServer
 from ray_tpu_torch.llm._engine import EngineConfig, PagedEngine, _make_prefill
@@ -23,6 +27,8 @@ from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as tfa
+from ray_tpu_torch.parallel.mesh import AXES, MeshSpec
+from ray_tpu_torch.parallel.ring_attention import _dispatch_hop
 
 _T = torch.from_numpy
 
@@ -85,6 +91,83 @@ def flash_vjp(entry, q, k, v, g, causal):
     grads = torch.autograd.grad(out, (q, k, v), _T(g))
     after = (tfa.flash_fwd_launches,) + bwd_launches()
     return (before, after) + tuple(_np(t) for t in grads)
+
+
+def chunk(q, k, v, o, m, l, causal):
+    """(``_chunk_xla``, ``flash_chunk_bhsd``) on the CPU, and the launch
+    count around them."""
+    before = tfa.flash_chunk_launches
+    args = [_T(a) for a in (q, k, v, o, m, l)]
+    plain = tfa._chunk_xla(*args, causal)
+    entry = tfa.flash_chunk_bhsd(*args, causal)
+    return ([_np(t) for t in plain], [_np(t) for t in entry],
+            (before, tfa.flash_chunk_launches))
+
+
+def chunk_vjp(q, k, v, o, m, l, causal, go, gm, gl):
+    """Gradients of the six inputs of ``flash_chunk_bhsd`` on the CPU."""
+    args = [_T(a).requires_grad_() for a in (q, k, v, o, m, l)]
+    out = tfa.flash_chunk_bhsd(*args, causal)
+    return [_np(t) for t in torch.autograd.grad(
+        out, args, [_T(a) for a in (go, gm, gl)])]
+
+
+def hop_bwd(q, k, v, g, lse, delta, causal):
+    """(``_hop_bwd_xla``, ``flash_hop_bwd``) on the CPU, and the launch
+    counts around them."""
+    before = bwd_launches()
+    args = [_T(a) for a in (q, k, v, g, lse, delta)]
+    plain = tfa._hop_bwd_xla(*args, causal)
+    entry = tfa.flash_hop_bwd(*args, causal)
+    return ([_np(t) for t in plain], [_np(t) for t in entry],
+            (before, bwd_launches()))
+
+
+def ring_reference(q, k, v, causal):
+    from ray_tpu_torch.parallel.ring_attention import ring_attention_reference
+
+    return _np(ring_attention_reference(_T(q), _T(k), _T(v), causal))
+
+
+def dispatch_hops(sp):
+    """``_dispatch_hop`` for every (causal, idx, i) on a ring of ``sp``."""
+    return {(c, idx, i): _dispatch_hop(c, idx, i, sp) for c in (False, True)
+            for idx in range(sp) for i in range(sp)}
+
+
+def mesh_spec_facts():
+    return {n: (MeshSpec(**kw).shape, MeshSpec(**kw).num_devices)
+            for n, kw in (("default", {}), ("dp2sp2", dict(dp=2, sp=2)),
+                          ("all", dict(dp=2, fsdp=2, tp=2, sp=2, pp=2)))} | {
+        "for_devices": MeshSpec.for_devices(8, tp=2).shape}
+
+
+def chunk_refusal(bad):
+    """The exception type name the K4 wrapper raises for input ``bad``."""
+    b, h, kvh, s, hd = 1, 4, 2, 64, 128
+    dt = torch.bfloat16
+    q = torch.zeros((b, h, s, hd), dtype=dt)
+    k = v = torch.zeros((b, kvh, s // 2, hd), dtype=dt)  # sq != sk is fine
+    o, m, l = (torch.zeros((b, h, s, hd)), torch.zeros((b, h, s, 1)),
+               torch.zeros((b, h, s, 1)))
+    if bad == "dtype":
+        q = q.float()
+    elif bad == "state_dtype":
+        o = o.bfloat16()
+    elif bad == "head_dim":
+        q, o = q[..., :32].contiguous(), o[..., :32].contiguous()
+        k = v = k[..., :32].contiguous()
+    elif bad == "heads":
+        k = v = torch.zeros((b, 3, s, hd), dtype=dt)
+    elif bad == "state_shape":
+        m = torch.zeros((b, h, s))
+    elif bad == "contiguous":
+        o = torch.zeros((b, s, h, hd)).transpose(1, 2)
+    try:
+        tfa._flash_chunk_cuda(q, k, v, o, m, l, True)
+    except (TypeError, ValueError) as e:
+        return type(e).__name__
+    return None
 
 
 def bwd_wrapper_refusal(bad):
@@ -279,24 +362,49 @@ def adamw_steps(params, grads, lr):
 
 
 class _Mesh:
-    """A stand-in for ``torch.distributed.DeviceMesh`` of ``n`` devices
-    (a real one of more than one device needs as many processes)."""
+    """A stand-in for ``torch.distributed.DeviceMesh`` with the axis sizes
+    ``axes`` (a real one of more than one device needs as many
+    processes): what ``make_train_step`` reads when it is built."""
 
-    def __init__(self, n):
-        self.n = n
+    def __init__(self, axes):
+        self.mesh_dim_names = AXES
+        self.shape = tuple(axes.get(a, 1) for a in AXES)
 
     def size(self):
-        return self.n
+        return math.prod(self.shape)
 
 
-def train_step_mesh(shape, n):
-    """The error text ``make_train_step`` raises on a mesh of ``n`` devices
-    (None if it accepts it)."""
+def train_step_mesh(shape, axes, impl="ring"):
+    """The error text ``make_train_step`` raises on a mesh of axis sizes
+    ``axes`` (None if it accepts it)."""
     try:
-        tl.make_train_step(_cfg(shape), mesh=_Mesh(n), device="cpu")
+        tl.make_train_step(_cfg(shape, attention_impl=impl),
+                           mesh=_Mesh(axes), device="cpu")
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+# -- parallel/: one gloo group of rank processes per test module -------------
+
+_ranks = None
+
+
+def sp_start(world):
+    """Start ``world`` rank processes in one gloo group (``_port_ranks``)."""
+    global _ranks
+    _ranks = _port_ranks.Ranks(world)
+    atexit.register(_ranks.close)
+    return world
+
+
+def sp_call(name, *args, **kwargs):
+    """``_port_ranks.<name>`` on every rank: the results in rank order."""
+    return _ranks.call(name, *args, **kwargs)
+
+
+def sp_stop():
+    _ranks.close()
 
 
 # -- llm/ --------------------------------------------------------------------
@@ -436,7 +544,10 @@ def import_check(root):
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ray_tpu' or m.startswith('ray_tpu.')]\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 16, names\n"
+        "assert {'ray_tpu_torch.parallel.mesh', "
+        "'ray_tpu_torch.parallel.ring_attention', "
+        "'ray_tpu_torch.parallel.ulysses'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

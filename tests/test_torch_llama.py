@@ -120,9 +120,9 @@ def test_rms_norm_and_rope_match_jax(port):
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_attention_not_ported_yet(port, weights, impl):
-    """With no sequence-parallel mesh (the port has none yet), "ring" and
-    "ulysses" take plain attention, as JAX's ``forward(..., mesh=None)``
-    does."""
+    """With no mesh, "ring" and "ulysses" take plain attention, as JAX's
+    ``forward(..., mesh=None)`` does (``test_torch_sequence_parallel.py``
+    holds them on an sp mesh)."""
     jp, tree = weights
     toks = _tokens(seed=2)
     want = jl.forward(_jcfg(attention_impl=impl), jp, jnp.asarray(toks),

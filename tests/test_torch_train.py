@@ -2,7 +2,8 @@
 `tiny` (fp32), from the same weights (carried by ``params_from_jax``) and the
 same token batch: losses over 5 AdamW steps and the parameters after them,
 for each attention implementation, remat mode and the chunked loss. JAX
-runs on a one-device mesh. The port's AdamW is also held to
+runs on a one-device mesh (``test_torch_sequence_parallel.py`` holds the
+dp x sp mesh). The port's AdamW is also held to
 ``optax.adamw`` on identical gradients. The port runs in a spawned child
 (``_port_proc``)."""
 
@@ -108,7 +109,11 @@ def test_adamw_matches_optax(port):
 
 
 def test_train_step_refuses_a_multi_device_mesh(port):
-    """A mesh of more than one device is the sharded slice: it raises."""
-    err = port("train_step_mesh", SHAPE, 2)
-    assert err is not None and "sharded" in err
-    assert port("train_step_mesh", SHAPE, 1) is None
+    """A mesh that shards the weights (fsdp or tp above 1) is the sharded
+    slice: it raises. A dp x sp mesh (``test_torch_sequence_parallel.py``)
+    and a mesh of one device do not."""
+    for axes in ({"fsdp": 2}, {"tp": 2}, {"dp": 2, "fsdp": 2, "tp": 2}):
+        err = port("train_step_mesh", SHAPE, axes)
+        assert err is not None and "sharded" in err, axes
+    for axes in ({}, {"dp": 2}, {"sp": 4}, {"dp": 2, "sp": 2}):
+        assert port("train_step_mesh", SHAPE, axes) is None, axes
