@@ -110,6 +110,69 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# SASS opcodes that show a library's design: HGMMA is wgmma, UTMALDG a TMA
+# load, LDGSTS a cp.async copy, HMMA mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+
+
+def _demangle(names):
+    """Kernels' C++ names, template arguments and all, from their symbols
+    (``cu++filt`` beside nvcc; the symbols themselves where that fails)."""
+    from ray_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    try:
+        out = subprocess.run([tool, *names], capture_output=True, text=True)
+    except OSError:
+        return list(names)
+    lines = out.stdout.splitlines()
+    return lines if len(lines) == len(names) else list(names)
+
+
+def build_info(paths):
+    """For each built library: the SASS opcode counts of ``SASS_OPS``
+    (``cuobjdump --dump-sass``) and ptxas's report of each kernel's
+    registers and spills. Printed, not gated."""
+    import re
+
+    from ray_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    info = {}
+    for lib, path in paths.items():
+        entry = {}
+        sass = subprocess.run([cuobjdump, "--dump-sass", path],
+                              capture_output=True, text=True)
+        if sass.returncode == 0:
+            entry["sass"] = {op: len(re.findall(rf"\b{op}\b", sass.stdout))
+                             for op in SASS_OPS}
+        else:
+            entry["sass"] = f"not measured: {sass.stderr.strip()[:200]}"
+        log = _build.log_path(lib)
+        if os.path.exists(log):
+            with open(log) as f:
+                text = f.read()
+            # per kernel: "Used N registers" and its spill line
+            chunks = text.split("Compiling entry function '")[1:]
+            names = _demangle([c.split("'", 1)[0] for c in chunks])
+            kernels = {}
+            for name, chunk in zip(names, chunks):
+                regs = re.search(r"Used (\d+) registers", chunk)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", chunk)
+                kernels[name] = dict(
+                    registers=int(regs.group(1)) if regs else None,
+                    spill_bytes=int(spill.group(1)) + int(spill.group(2))
+                    if spill else None)
+            entry["kernels"] = kernels
+            entry["warnings"] = sorted({line.strip() for line in
+                                        text.splitlines()
+                                        if "warning" in line.lower()
+                                        or "Performance Loss" in line})
+        info[lib] = entry
+    return info
+
+
 def _k1_bound(b, h, kvh, s, hd, causal):
     """(bound_ms, bound_by, flops, bytes) for one K1 call: each input read
     once, each output written once; causal counts the s(s+1)/2 pairs the
@@ -152,7 +215,9 @@ def phase_k1(dev):
             row = dict(b=b, h=h, kvh=kvh, s=s, hd=hd, causal=causal,
                        err_o=err_o, err_lse=err_lse, ms=ms,
                        plain_ms=plain_ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, tflops=flops / (ms * 1e-3) / 1e12,
+                       bound_by=bound_by, frac_of_bound=bound_ms / ms,
+                       x_library=ms / sdpa_ms,
+                       tflops=flops / (ms * 1e-3) / 1e12,
                        gbytes=nbytes / 1e9)
             rows.append(row)
             print(json.dumps({"k1": row}), flush=True)
@@ -369,6 +434,8 @@ def phase_k4(dev):
                     q, k, v, is_causal=causal, enable_gqa=kvh != h))
                 bms, by, flops, nbytes = _k4_bound(b, h, kvh, s, hd, causal)
                 row.update(bound_ms=bms, bound_by=by,
+                           frac_of_bound=bms / row["ms"],
+                           x_library=row["ms"] / row["sdpa_ms"],
                            tflops=flops / (row["ms"] * 1e-3) / 1e12)
                 rows.append(row)
                 print(json.dumps({"k4": row}), flush=True)
@@ -379,6 +446,16 @@ def phase_k4(dev):
                        f"{TOL_O_REL}|o/l| and ||err||/||ref|| "
                        f"{TOL_GRAD_NORM}, m {TOL_M}, l {TOL_L_REL} relative, "
                        f"or not finite: {row}")
+    # the diagonal hop does half the products: its time over the unmasked
+    # hop's, per shape and state (printed, not gated)
+    ratios = {}
+    for r in rows:
+        if r["causal"]:
+            full = next(f for f in rows if not f["causal"] and all(
+                f[k] == r[k] for k in ("b", "h", "kvh", "s", "hd", "state")))
+            ratios[f"b{r['b']} h{r['h']} kvh{r['kvh']} s{r['s']} "
+                   f"hd{r['hd']} {r['state']}"] = r["ms"] / full["ms"]
+    print(json.dumps({"k4_diag_over_full": ratios}), flush=True)
     return rows
 
 
@@ -818,10 +895,11 @@ def _train_profile(train_step, state, tokens):
                kernels=sum(e.count for e in kernels),
                top_kernels_ms={e.key[:60]: e.self_device_time_total / 1e3
                                for e in top},
-               # K1, K2, K3 (and their launches) in this step
+               # K1 (hattn::attn_fwd), K2, K3 (and their launches) in this step
                flash_kernels={e.key[:60]: [e.self_device_time_total / 1e3,
                                            e.count]
-                              for e in kernels if "flash_" in e.key})
+                              for e in kernels
+                              if "flash_" in e.key or "attn_fwd" in e.key})
     if dev_ms > 0:
         out["device_idle_share"] = 1.0 - dev_ms / host_ms
     return out
@@ -1233,12 +1311,14 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.monotonic()
-    _build.build_all()
+    paths = _build.build_all()
     build_s = time.monotonic() - t0
     print(f"build: {build_s:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})",
           flush=True)
+    binfo = build_info(paths)
+    print(json.dumps({"build_info": binfo}), flush=True)
 
-    report = {"card": card, "build_s": build_s}
+    report = {"card": card, "build_s": build_s, "build_info": binfo}
     if "k1" in phases:
         report["k1"] = phase_k1(dev)
     if "k23" in phases:

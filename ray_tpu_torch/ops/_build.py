@@ -3,12 +3,14 @@ source hash, and loads them with ctypes.
 
 Each kernel source under ``ray_tpu_torch/csrc/`` exposes a plain C entry
 point (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3, and K5 as their
-fp32-output launches; ``flash_chunk.cu``: K4; all include ``mma_tile.cuh``),
+fp32-output launches; ``flash_chunk.cu``: K4; K1 and K4 share
+``hopper_attn.cuh``, the backward ``mma_tile.cuh``),
 so the build is one ``nvcc`` call per source with no
 PyTorch headers (seconds, not the minutes a torch-extension build takes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so \
+         csrc/<name>.cu
 
 Artifacts land in ``ray_tpu_torch/_build/`` and are rebuilt only when the
 source or a shared header (``csrc/*.cuh``) changes (modelled on
@@ -57,8 +59,10 @@ _ENTRIES = {
     },
 }
 
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills; ``build_all`` keeps the report beside the library (``log_path``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -87,6 +91,12 @@ def lib_path(name: str) -> str:
     return os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """The compiler's output (ptxas's register and spill report) of the
+    library ``lib_path(name)``, written when it was built."""
+    return lib_path(name) + ".log"
+
+
 def build_all(names: Sequence[str] = tuple(_ENTRIES)) -> Dict[str, str]:
     """Compile every stale library in ``names`` with one ``nvcc`` process
     each, all started together. Returns name -> path; raises with the
@@ -112,6 +122,8 @@ def build_all(names: Sequence[str] = tuple(_ENTRIES)) -> Dict[str, str]:
             if p.returncode != 0:
                 errors.append(f"nvcc {n}.cu failed ({p.returncode}):\n{out}")
                 continue
+            with open(log_path(n), "w") as f:
+                f.write(out)
             os.replace(tmp, paths[n])
         if errors:
             raise RuntimeError("\n".join(errors))

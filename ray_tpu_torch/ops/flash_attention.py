@@ -174,7 +174,8 @@ def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
     built or launched: q (b, h, sq, hd) and k/v (b, kvh, sk, hd) in bf16,
     head_dim 64 or 128, h % kvh == 0, sq == sk where ``same_length``;
     ``bf16`` / ``fp32`` map the names of further inputs to (tensor, shape).
-    Every input contiguous and on q's device."""
+    Every input contiguous and on q's device; q, k and v 16-byte
+    aligned."""
     extra = {**(bf16 or {}), **(fp32 or {})}
     wrong = {n: t.dtype for n, t in [("q", q), ("k", k), ("v", v)] + [
         (n, t) for n, (t, _) in (bf16 or {}).items()]
@@ -204,6 +205,14 @@ def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
         raise ValueError(f"{kernel} takes contiguous inputs")
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{kernel}: every input must be on q's device")
+    # the forward kernels read q, k and v through TMA, which needs 16-byte
+    # aligned global addresses (the backward's 16-byte loads do too)
+    unaligned = [n for n, t in (("q", q), ("k", k), ("v", v))
+                 if t.data_ptr() % 16]
+    if unaligned:
+        raise ValueError(f"{kernel}: {', '.join(unaligned)} not at a 16-byte "
+                         f"aligned address (data_ptr() % 16 != 0), as a view "
+                         f"at an odd storage offset is")
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool):

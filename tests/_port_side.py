@@ -14,6 +14,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -221,6 +222,26 @@ def wrapper_refusal(bad):
     except (TypeError, ValueError) as e:
         return type(e).__name__
     return None
+
+
+def alignment_check(which, offset):
+    """``_check_inputs`` with tensor ``which`` of q/k/v a contiguous bf16
+    view at storage offset ``offset`` elements: (is it contiguous, its
+    data_ptr() % 16, the ValueError's text or None)."""
+    b, h, kvh, s, hd = 1, 4, 2, 64, 128
+    shapes = {"q": (b, h, s, hd), "k": (b, kvh, s, hd), "v": (b, kvh, s, hd)}
+    t = {n: torch.zeros(shape, dtype=torch.bfloat16)
+         for n, shape in shapes.items()}
+    n = math.prod(shapes[which])
+    t[which] = torch.zeros(n + 16, dtype=torch.bfloat16)[
+        offset:offset + n].view(shapes[which])
+    try:
+        tfa._check_inputs("flash_fwd kernel", t["q"], t["k"], t["v"],
+                          same_length=True)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return t[which].is_contiguous(), t[which].data_ptr() % 16, err
 
 
 def build_without_nvcc(tmp):
@@ -554,3 +575,12 @@ def import_check(root):
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     return out.returncode, out.stdout, out.stderr
+
+
+# -- the harness itself --------------------------------------------------------
+
+
+def sleep(seconds):
+    """A call that outlasts a short ``_port_proc.spawn`` timeout."""
+    time.sleep(seconds)
+    return seconds

@@ -7,6 +7,8 @@ only on the card (``chip_smoke.py``); here a CPU tensor takes the plain
 version and the kernel's launch count stays 0. The port runs in a spawned
 child (``_port_proc``)."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +94,35 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(port, bad):
     assert port("wrapper_refusal", bad) == (
         "TypeError" if bad == "dtype" else "ValueError")
     assert port("launches") == 0
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_kernel_wrapper_refuses_an_unaligned_view(port, which):
+    """The forward kernels read q, k and v through TMA, which needs 16-byte
+    aligned addresses: a contiguous bf16 view at storage offset 1 is
+    refused, naming the tensor; one at offset 8 (16 bytes) is taken."""
+    contiguous, rem, err = port("alignment_check", which, 1)
+    assert contiguous and rem != 0
+    assert err is not None and f"{which} not at a 16-byte aligned" in err
+    contiguous, rem, err = port("alignment_check", which, 8)
+    assert contiguous and rem == 0 and err is None
+    assert port("launches") == 0
+
+
+def test_port_child_that_outlives_its_timeout_is_ended():
+    """A call that outlasts ``spawn``'s timeout raises TimeoutError, and the
+    ``with`` block ends the stuck child at once: it cannot hold a pytest
+    worker."""
+    with spawn(timeout=2.0) as call:
+        t0 = time.monotonic()
+        with pytest.raises(TimeoutError):
+            call("sleep", 60)
+        raised = time.monotonic() - t0
+        with pytest.raises(RuntimeError, match="has been ended"):
+            call("launches")
+    left = time.monotonic() - t0
+    assert 2.0 <= raised < 10.0
+    assert left - raised < 5.0
 
 
 def test_build_raises_without_nvcc(port, tmp_path):
