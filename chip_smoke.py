@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs eight phases and fails (exit 1) if any check fails:
+runs nine phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -39,6 +39,9 @@ runs eight phases and fails (exit 1) if any check fails:
 * k5      — the ring-hop backward (K5: K2 with an fp32 dq, K3 with fp32
             dk/dv) against ``_hop_bwd_xla`` at the same shapes, causal and
             not, with the global lse/delta of a two-hop forward.
+* route   — the three public entries on CUDA inputs the kernels do not
+            take (fp32; bf16 at head_dim 32), forward and backward: no
+            kernel launch, and the plain versions' results on the card.
 * ring    — the sequence-parallel path on sp 4: four processes on the one
             card over a gloo group (NCCL refuses two ranks on one GPU), every
             collective staged through host memory. Ring and Ulysses attention
@@ -338,6 +341,10 @@ def phase_k23(dev):
                 row[f"{name}_bound_by"] = by
                 row[f"{name}_tflops"] = flops / (row[f"{name}_ms"] * 1e-3) \
                     / 1e12
+                row[f"{name}_frac_of_bound"] = bms / row[f"{name}_ms"]
+            # SDPA's backward does K2's and K3's work in one call
+            row["x_library"] = (row["k2_ms"] + row["k3_ms"]) \
+                / row["sdpa_bwd_ms"]
             rows.append(row)
             print(json.dumps({"k23": row}), flush=True)
             _check(ok, f"K2/K3 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
@@ -511,12 +518,188 @@ def phase_k5(dev):
                 row[f"{key}_bound_ms"] = bms
                 row[f"{key}_bound_by"] = by
                 row[f"{key}_tflops"] = flops / (row[f"{key}_ms"] * 1e-3) / 1e12
+                row[f"{key}_frac_of_bound"] = bms / row[f"{key}_ms"]
+            row["x_library"] = (row["k5a_ms"] + row["k5b_ms"]) \
+                / row["sdpa_bwd_ms"]
             rows.append(row)
             print(json.dumps({"k5": row}), flush=True)
             _check(ok, f"K5 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
                    f"max|err| <= {TOL_GRAD_MAX} max|ref|, not fp32 or not "
                    f"finite: {row}")
+    # the diagonal hop does half of K5b's products: its time over the
+    # unmasked hop's, per shape (printed, not gated)
+    ratios = {}
+    for r in rows:
+        if r["causal"]:
+            full = next(f for f in rows if not f["causal"] and all(
+                f[k] == r[k] for k in ("b", "h", "kvh", "s", "hd")))
+            ratios[f"b{r['b']} h{r['h']} kvh{r['kvh']} s{r['s']} "
+                   f"hd{r['hd']}"] = r["k5b_ms"] / full["k5b_ms"]
+    print(json.dumps({"k5b_diag_over_full": ratios}), flush=True)
     return rows
+
+
+# inputs the kernels do not take, (dtype, head_dim) at b1 h8 kvh4 s256:
+# fp32 at head_dim 64 and bf16 at head_dim 32 (``LlamaConfig.tiny``'s)
+ROUTE_CASES = (("fp32", 64), ("bf16", 32))
+ROUTE_SHAPE = (1, 8, 4, 256)
+# and bf16 views at head_dim 128, which the kernels take through copies
+ROUTE_VIEW_HD = 128
+# ||err|| / ||ref||: the same plain ops, or the same deterministic kernels,
+# on the same values
+TOL_ROUTE = 1e-5
+
+
+def phase_route(dev):
+    """The three public entries (``flash_attention_bhsd``,
+    ``flash_chunk_bhsd``, ``flash_hop_bwd``) on CUDA inputs the kernels do
+    not take, forward and backward: no kernel launches, and the results of
+    the plain versions they route to, on the card. Then the same entries on
+    bf16 views the kernels do take (head_dim ``ROUTE_VIEW_HD``): they launch,
+    through ``_kernel_input``'s copies, and give what they give on
+    contiguous copies of the same values."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, h, kvh, s = ROUTE_SHAPE
+
+    def grads(fn, inputs, cots):
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*xs)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        return outs + list(torch.autograd.grad(outs, xs, cots))
+
+    def rel_err(got, want):
+        return max(((x.float() - w.float()).norm()
+                    / w.float().norm().clamp_min(1e-30)).item()
+                   for x, w in zip(got, want))
+
+    for dt_name, hd in ROUTE_CASES + (("bf16", ROUTE_VIEW_HD),):
+        dt = getattr(torch, {"fp32": "float32", "bf16": "bfloat16"}[dt_name])
+        views = hd == ROUTE_VIEW_HD
+
+        def randn(*shape, dtype=dt):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        q, g = randn(b, h, s, hd), randn(b, h, s, hd)
+        k, v = randn(b, kvh, s, hd), randn(b, kvh, s, hd)
+        f32 = torch.float32
+        state = (randn(b, h, s, hd, dtype=f32), randn(b, h, s, 1, dtype=f32),
+                 randn(b, h, s, 1, dtype=f32).abs() + 1)
+        cot = (randn(b, h, s, hd, dtype=f32), randn(b, h, s, 1, dtype=f32),
+               randn(b, h, s, 1, dtype=f32))
+        lse, delta = randn(b, h, s, 1, dtype=f32), randn(b, h, s, 1, dtype=f32)
+        if views:
+            _route_views(fa, grads, rel_err, rows, (q, k, v, g), state,
+                         cot, lse, delta)
+            continue
+
+        def attn_ref(q, k, v):
+            return fa._attention_reference(q, k, v, True)[0]
+
+        cases = {
+            "flash_attention_bhsd": (
+                lambda: grads(lambda *a: fa.flash_attention_bhsd(*a, True),
+                              (q, k, v), (g,)),
+                # the plain forward and, as the entry's backward does, the
+                # plain backward on its o and lse
+                lambda: [attn_ref(q, k, v)] + list(fa._flash_bwd_reference(
+                    q, k, v, *fa._attention_reference(q, k, v, True), g,
+                    True))),
+            "flash_chunk_bhsd": (
+                lambda: grads(lambda *a: fa.flash_chunk_bhsd(*a, True),
+                              (q, k, v) + state, cot),
+                lambda: grads(lambda *a: fa._chunk_xla(*a, True),
+                              (q, k, v) + state, cot)),
+            "flash_hop_bwd": (
+                lambda: list(fa.flash_hop_bwd(q, k, v, g, lse, delta, True)),
+                lambda: list(fa._hop_bwd_xla(q, k, v, g, lse, delta, True))),
+        }
+        for entry, (run, plain) in cases.items():
+            _zero_launches(fa)
+            got = run()
+            torch.cuda.synchronize()
+            launches = _read_launches(fa)
+            want = plain()
+            rel = rel_err(got, want)
+            row = dict(entry=entry, dtype=dt_name, hd=hd,
+                       kernel_takes=fa._kernel_takes(q, k, v),
+                       launches=launches, n_results=len(got),
+                       rel_norm_err=rel)
+            rows.append(row)
+            print(json.dumps({"route": row}), flush=True)
+            _check(not row["kernel_takes"]
+                   and not any(launches.values())
+                   and len(got) == len(want)
+                   and all(bool(torch.isfinite(x).all()) for x in got)
+                   and rel <= TOL_ROUTE,
+                   f"{entry} on {dt_name} hd {hd}: launched a kernel or "
+                   f"differs from its plain version beyond ||err||/||ref|| "
+                   f"{TOL_ROUTE}: {row}")
+    return rows
+
+
+def _view(t, how):
+    """A view of ``t``'s values: "transposed" (the transpose of a (b, s,
+    h, hd) tensor: not contiguous) or "offset" (contiguous, one element
+    into its storage: not 16-byte aligned)."""
+    import torch
+
+    if how == "transposed":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:t.numel() + 1].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _route_views(fa, grads, rel_err, rows, qkvg, state, cot, lse, delta):
+    """The route phase's bf16 views (q and dO transposed, k and v at an odd
+    offset) through the three entries: each entry's kernels launch, and its
+    results equal the same entry's on the contiguous tensors."""
+    import torch
+
+    q, k, v, g = qkvg
+    qv, kv, vv, gv = (_view(t, "offset" if i in (1, 2) else "transposed")
+                      for i, t in enumerate(qkvg))
+    cases = {
+        "flash_attention_bhsd": (
+            lambda q, k, v, g: grads(
+                lambda *a: fa.flash_attention_bhsd(*a, True), (q, k, v), (g,)),
+            ("k1", "k2", "k3")),
+        "flash_chunk_bhsd": (
+            lambda q, k, v, g: grads(
+                lambda *a: fa.flash_chunk_bhsd(*a, True), (q, k, v) + state,
+                cot),
+            ("k4",)),
+        "flash_hop_bwd": (
+            lambda q, k, v, g: list(fa.flash_hop_bwd(q, k, v, g, lse, delta,
+                                                     True)),
+            ("k2", "k3")),
+    }
+    for entry, (run, kernels) in cases.items():
+        _zero_launches(fa)
+        got = run(qv, kv, vv, gv)
+        torch.cuda.synchronize()
+        launches = _read_launches(fa)
+        want = run(q, k, v, g)
+        rel = rel_err(got, want)
+        row = dict(entry=entry, dtype="bf16", hd=ROUTE_VIEW_HD,
+                   inputs="views", kernel_takes=fa._kernel_takes(qv, kv, vv),
+                   launches=launches, n_results=len(got), rel_norm_err=rel)
+        rows.append(row)
+        print(json.dumps({"route": row}), flush=True)
+        _check(row["kernel_takes"]
+               and all(launches[n] > 0 for n in kernels)
+               and len(got) == len(want)
+               and all(bool(torch.isfinite(x).all()) for x in got)
+               and rel <= TOL_ROUTE,
+               f"{entry} on bf16 views: its kernels {kernels} did not launch "
+               f"or differ from their run on contiguous tensors beyond "
+               f"||err||/||ref|| {TOL_ROUTE}: {row}")
 
 
 FWD_TOKENS = 2048
@@ -913,6 +1096,7 @@ def _train_profile(train_step, state, tokens):
 RING_SP = 4
 RING_LABEL = "4 ranks time-sliced on one card, gloo through host"
 RING_ATTN = (1, 8, 4, 32768, 128)  # b, h, kvh, s, hd: the flagship's heads
+RING_ATTN_IMPLS = ("ring", "ulysses", "flash")
 RING_TRAIN_BATCH, RING_TRAIN_SEQ, RING_TRAIN_STEPS = 1, 8192, 3
 RING_TIMEOUT_S = 600
 GLOO_TIMEOUT_S = 300
@@ -966,17 +1150,23 @@ def _ring_rank_attention(dev, mesh, impl):
     """``impl``'s sharded attention forward and backward on this rank's
     shard of the seeded inputs (causal), launches counted from zero around
     it; then this shard of the whole-sequence ``flash_attention`` (K1, K2,
-    K3) on the same inputs, to hold it against."""
+    K3) on the same inputs, to hold it against. "flash" is the model's
+    ``attention`` with ``attention_impl="flash"`` on the sp mesh: the
+    kernels on the all-gathered sequence."""
     import torch
 
+    from ray_tpu_torch.models.llama import LlamaConfig, attention
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.parallel.mesh import axis_index
     from ray_tpu_torch.parallel.ring_attention import ring_attention_sharded
     from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
+    def flash_on_sp(q, k, v, mesh, causal):
+        return attention(LlamaConfig(attention_impl="flash"), q, k, v, mesh)
+
     fn = {"ring": ring_attention_sharded,
-          "ulysses": ulysses_attention_sharded}[impl]
+          "ulysses": ulysses_attention_sharded, "flash": flash_on_sp}[impl]
     q, k, v, g = _ring_attention_inputs(dev)
     n = q.shape[1] // RING_SP
     idx = axis_index(mesh, "sp")
@@ -1049,7 +1239,7 @@ def _ring_rank(rank, store, device, results):
         torch.cuda.set_device(dev)
         mesh = MeshSpec(sp=RING_SP).build()
         out = {impl: _ring_rank_attention(dev, mesh, impl)
-               for impl in ("ring", "ulysses")}
+               for impl in RING_ATTN_IMPLS}
         torch.cuda.empty_cache()
         out["train"] = _ring_rank_train(dev, mesh)
         results.put((rank, True, out))
@@ -1083,10 +1273,11 @@ def _flash_train_losses(dev):
 
 
 def phase_ring(dev):
-    """The sequence-parallel path on 4 ranks (``RING_LABEL``): ring and
-    Ulysses attention at full width against the whole-sequence flash
-    attention, K4 / K2 / K3 launches counted; then the flagship trained on
-    sp 4 with "ring" against a single-process "flash" run."""
+    """The sequence-parallel path on 4 ranks (``RING_LABEL``): ring,
+    Ulysses and the model's "flash" attention on the mesh at full width
+    against the whole-sequence flash attention, K1-K4 launches counted;
+    then the flagship trained on sp 4 with "ring" against a single-process
+    "flash" run."""
     import multiprocessing
     import queue
     import shutil
@@ -1128,7 +1319,7 @@ def phase_ring(dev):
     out = dict(label=RING_LABEL, ranks=RING_SP, wall_s=time.monotonic() - t0)
 
     b, h, kvh, s, hd = RING_ATTN
-    for impl in ("ring", "ulysses"):
+    for impl in RING_ATTN_IMPLS:
         per = [ranks[r][impl] for r in range(RING_SP)]
         launches = {k: sum(p["launches"][k] for p in per)
                     for k in per[0]["launches"]}
@@ -1158,7 +1349,7 @@ def phase_ring(dev):
                f"||err||/||ref|| {TOL_GRAD_NORM} (out) or K2-K3's gates: "
                f"{row}")
         # ring: rank idx runs idx + 1 non-skipped hops each way; Ulysses
-        # one flash attention a rank
+        # and "flash" one flash attention a rank
         want = (dict(k1=0, k2=10, k3=10, k4=10) if impl == "ring"
                 else dict(k1=RING_SP, k2=RING_SP, k3=RING_SP, k4=0))
         _check(launches == want, f"{impl} launches {launches}, want {want}")
@@ -1224,12 +1415,13 @@ def kernels_line(report):
     if "k23" in report and "train" in report:
         row = next(r for r in report["k23"] if r["causal"] and (
             r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == K23_MAIN_SHAPE)
-        for key, name, line_no, errs in (
-                ("k2", "flash_bwd_dq (K2)", 275, ("err_dq",)),
-                ("k3", "flash_bwd_dkv (K3)", 320, ("err_dk", "err_dv"))):
+        for key, name, line_no, errs, src in (
+                ("k2", "flash_bwd_dq (K2)", 275, ("err_dq",), "flash_bwd.cu"),
+                ("k3", "flash_bwd_dkv (K3)", 320, ("err_dk", "err_dv"),
+                 "flash_bwd_dkv.cu")):
             line.append({
                 "name": name, "route": "cuda",
-                "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                "source": f"ray_tpu_torch/csrc/{src}",
                 "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
                 "launches": report["train"]["launches"][key],
                 "max_abs_err": max(r[e] for r in report["k23"] for e in errs),
@@ -1260,13 +1452,14 @@ def kernels_line(report):
     if "k5" in report and "ring" in report:
         row = next(r for r in report["k5"] if not r["causal"] and (
             r["b"], r["h"], r["kvh"], r["s"], r["hd"]) == HOP_MAIN_SHAPE)
-        for key, counter, name, line_no, errs in (
-                ("k5a", "k2", "flash_bwd_dq fp32 (K5a)", 743, ("err_dq",)),
+        for key, counter, name, line_no, errs, src in (
+                ("k5a", "k2", "flash_bwd_dq fp32 (K5a)", 743, ("err_dq",),
+                 "flash_bwd.cu"),
                 ("k5b", "k3", "flash_bwd_dkv fp32 (K5b)", 770,
-                 ("err_dk", "err_dv"))):
+                 ("err_dk", "err_dv"), "flash_bwd_dkv.cu")):
             line.append({
                 "name": name, "route": "cuda",
-                "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                "source": f"ray_tpu_torch/csrc/{src}",
                 "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
                 "launches": report["ring"]["train"]["launches"][counter],
                 "max_abs_err": max(r[e] for r in report["k5"] for e in errs),
@@ -1278,7 +1471,8 @@ def kernels_line(report):
     return line
 
 
-PHASES = ("k1", "k23", "k4", "k5", "forward", "serve", "train", "ring")
+PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
+          "ring")
 
 
 def main(argv=None) -> int:
@@ -1327,6 +1521,8 @@ def main(argv=None) -> int:
         report["k4"] = phase_k4(dev)
     if "k5" in phases:
         report["k5"] = phase_k5(dev)
+    if "route" in phases:
+        report["route"] = phase_route(dev)
     if phases & {"forward", "serve"}:
         report.update(phase_model(dev, phases))
     if "train" in phases:

@@ -1,7 +1,7 @@
-// Tile helpers of the flash-attention backward kernels (flash_bwd.cu): bf16
+// Tile helpers of the flash-attention dq kernel (flash_bwd.cu, K2): bf16
 // mma.sync on Hopper's tensor cores and the zero-filled row loads that make
-// any sequence length safe. The forward kernels (K1, K4) run on wgmma and
-// TMA instead (hopper_attn.cuh), and take only pack_bf16 from here.
+// any sequence length safe. The other kernels (K1, K4 and K3) run on wgmma
+// and TMA instead (hopper_common.cuh), and take only pack_bf16 from here.
 
 #pragma once
 

@@ -14,7 +14,12 @@ attention kernels on CUDA (K1 forward, K2/K3 backward). "ring" and
 "ulysses" shard the sequence over a mesh's sp axis
 (``parallel/ring_attention.py``: K4 forward, K5 backward on CUDA;
 ``parallel/ulysses.py``: all-to-alls around K1-K3) and take plain
-attention without one (mesh None or sp 1), as in the JAX package.
+attention without one (mesh None or sp 1), as in the JAX package. "xla" and
+"flash" on a mesh with sp > 1 run the program JAX's GSPMD runs there:
+"xla" all-gathers K and V over sp and attends from the rank's query block
+to the whole sequence; "flash" all-gathers q, k and v, runs the kernels
+on the whole sequence (GSPMD cannot split a custom call) and keeps the
+rank's rows of the output.
 
 On a mesh (``parallel/mesh.py``: one process a position) the weights are
 replicated: the batch is sharded over dp and the sequence over sp, and
@@ -41,7 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.parallel.mesh import axis_index, mesh_shape, stage, to_wire
+from ray_tpu_torch.parallel.mesh import (all_gather, axis_index, mesh_shape,
+                                        stage, to_wire)
 
 
 @dataclass(frozen=True)
@@ -192,8 +198,12 @@ def apply_rope_bhsd(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _attention_xla(q, k, v, causal: bool = True):
-    """Plain attention; fp32 softmax. q: (b, s, h, hd), k/v (b, s, kv, hd)."""
+def _attention_xla(q, k, v, causal: bool = True, q_offset=None):
+    """Plain attention; fp32 softmax. q: (b, sq, h, hd), k/v (b, sk, kv, hd).
+
+    The causal mask keeps key positions up to ``q_offset`` plus the query's
+    own: by default sk - sq (a bottom-right mask), on a sequence-sharded
+    mesh the query block's global start."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     if kv != h:  # GQA: repeat kv heads
@@ -207,7 +217,7 @@ def _attention_xla(q, k, v, causal: bool = True):
     if causal:
         sk = k.shape[1]
         mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(
-            sk - sq)
+            sk - sq if q_offset is None else q_offset)
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -229,8 +239,27 @@ def attention(cfg: LlamaConfig, q, k, v, mesh=None):
     if cfg.attention_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=True)
+        return _on_whole_sequence(flash_attention, q, k, v, mesh, dim=1)
+    if sp > 1:
+        # "xla" on a sequence-sharded mesh: GSPMD's K/V all-gather, then
+        # the rank's queries against the whole sequence
+        k, v = (all_gather(t, mesh, "sp", dim=1) for t in (k, v))
+        return _attention_xla(q, k, v, causal=True,
+                              q_offset=axis_index(mesh, "sp") * q.shape[1])
     return _attention_xla(q, k, v, causal=True)
+
+
+def _on_whole_sequence(attn, q, k, v, mesh, dim: int):
+    """Causal ``attn`` of this rank's sequence block (along ``dim``) on a
+    mesh with sp > 1 as GSPMD runs a kernel it cannot split: q, k and v
+    all-gathered over sp, ``attn`` on the whole sequence, this rank's rows
+    kept (the gathers' backward reduce-scatters dq, dk and dv). Without sp,
+    ``attn`` on the block itself."""
+    if mesh_shape(mesh)["sp"] == 1:
+        return attn(q, k, v, causal=True)
+    s, i = q.shape[dim], axis_index(mesh, "sp")
+    q, k, v = (all_gather(t, mesh, "sp", dim=dim) for t in (q, k, v))
+    return attn(q, k, v, causal=True).narrow(dim, i * s, s)
 
 
 def _ffn(cfg: LlamaConfig, h, p):
@@ -262,8 +291,8 @@ def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
         v = torch.einsum("bsd,dhk->bhsk", x, wv)
         q = apply_rope_bhsd(q, cos, sin)
         k = apply_rope_bhsd(k, cos, sin)
-        o = flash_attention_bhsd(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=True)
+        o = _on_whole_sequence(flash_attention_bhsd, q.contiguous(),
+                               k.contiguous(), v.contiguous(), mesh, dim=2)
         wo = p["wo"].to(dt).reshape(cfg.n_heads, hd, cfg.dim)
         attn = torch.einsum("bhsk,hkd->bsd", o, wo)
     else:
@@ -290,11 +319,6 @@ def _check_mesh(cfg: LlamaConfig, mesh) -> Dict[str, int]:
             f"a mesh with {sharded} shards the weights: that needs the "
             "sharded training slice (FSDP / tensor / pipeline parallel), "
             "not ported yet; dp and sp are")
-    if shape["sp"] > 1 and cfg.attention_impl not in ("ring", "ulysses"):
-        raise ValueError(
-            f"attention_impl {cfg.attention_impl!r} attends within one "
-            f"rank's block; a sequence sharded over sp={shape['sp']} needs "
-            "'ring' or 'ulysses'")
     return shape
 
 
@@ -339,13 +363,37 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     return (h @ params["lm_head"].to(dt)).float()
 
 
-def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy; tokens (b, s)."""
-    logits = forward(cfg, params, tokens[:, :-1])
-    targets = tokens[:, 1:]
+def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Next-token cross entropy; tokens (b, s).
+
+    On a ``mesh`` (every rank calls it together) ``tokens`` is the global
+    batch and ``forward`` gives this rank's block: its NLL against the same
+    block of the targets is summed over the ranks and divided by the global
+    b (s - 1), so every rank returns the global loss. Its gradient reaches
+    this rank's block alone: summed over the ranks, as ``make_train_step``
+    sums gradients, it is the global loss's. The s - 1 inputs are padded at
+    the end to a multiple of sp (JAX's sharding takes uneven blocks; the
+    port's are equal): causal attention keeps the padding from every real
+    position, and its targets are masked out."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    count = targets.numel()
+    if mesh is not None:
+        pad = -inputs.shape[1] % mesh_shape(mesh)["sp"]
+        inputs = F.pad(inputs, (0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+        rows, cols = _mesh_block(cfg, mesh, *targets.shape)
+        targets = targets[rows, cols]
+    logits = forward(cfg, params, inputs, mesh)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    return nll.mean()
+    nll = -torch.gather(logp, -1, targets.clamp(min=0)[..., None].long()
+                        )[..., 0]
+    if mesh is None:
+        return nll.mean()
+    local = torch.where(targets >= 0, nll, 0.0).sum()
+    total = local.detach().clone()
+    _all_reduce_sum([total])
+    return (local + (total - local.detach())) / count
 
 
 # ---------------------------------------------------------------------------

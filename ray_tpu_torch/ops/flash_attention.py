@@ -9,19 +9,25 @@ head ``hi`` to kv head ``hi // (h // kvh)``.
 mirrors the JAX package's custom VJP: the forward saves q, k, v, o and lse,
 the backward computes delta = rowsum(dO * o) and then dq, dk and dv.
 
-* A CUDA tensor goes to the hand-written kernels, or the wrapper raises:
-  ``csrc/flash_fwd.cu`` (K1, the port of ``_fwd_kernel``) forward and
-  ``csrc/flash_bwd.cu`` (K2 ``_dq_kernel``, K3 ``_dkv_kernel``) backward.
-  They take bf16, head_dim 64 or 128, ``h % kvh == 0``, contiguous
-  tensors, q and k/v of one length.
-* A CPU tensor takes the plain versions, ``_attention_reference`` and
-  ``_flash_bwd_reference``, through the same autograd function.
+* CUDA inputs that the hand-written kernels take (``_supported_on_cuda``:
+  bf16, head_dim 64 or 128, ``h % kvh == 0``) go to them, or the wrapper
+  raises: ``csrc/flash_fwd.cu`` (K1, the port of ``_fwd_kernel``) forward,
+  ``csrc/flash_bwd.cu`` (K2 ``_dq_kernel``) and ``csrc/flash_bwd_dkv.cu``
+  (K3 ``_dkv_kernel``) backward. K1 also needs q and k/v of one length.
+  A view that is not contiguous or not 16-byte aligned (TMA's rule) is
+  copied into a tensor that is (``_kernel_input``), and launches.
+* Any other input takes the plain versions, ``_attention_reference`` and
+  ``_flash_bwd_reference``, on its own device through the same autograd
+  function: every CPU tensor, and on CUDA what the kernels do not take
+  (fp32, head_dim 32), as the JAX package routes what its kernel does not
+  take (``_supported_on_tpu``) to XLA. The forward makes the choice once,
+  and the backward follows it.
 
 The ring-attention hop primitives (``parallel/ring_attention.py``) follow
-the same rule: ``flash_chunk_bhsd`` runs ``csrc/flash_chunk.cu`` (K4, the
-port of ``_chunk_kernel``) on CUDA and ``_chunk_xla`` on the CPU;
-``flash_hop_bwd`` runs K2 and K3 with fp32 outputs (K5) on CUDA and
-``_hop_bwd_xla`` on the CPU.
+the same rule (the JAX package's ``_chunk_supported``):
+``flash_chunk_bhsd`` runs ``csrc/flash_chunk.cu`` (K4, the port of
+``_chunk_kernel``) or ``_chunk_xla``; ``flash_hop_bwd`` runs K2 and K3 with
+fp32 outputs (K5) or ``_hop_bwd_xla``.
 """
 
 from __future__ import annotations
@@ -168,13 +174,53 @@ def _chunk_xla(q, k, v, o, m, l, causal: bool):
 # ---------------------------------------------------------------------------
 
 
+def _kernel_takes(q, k, v, *more) -> bool:
+    """Whether the CUDA kernels take these inputs, wherever they lie: q,
+    k, v and ``more`` (dO where given) in bf16, head_dim 64 or 128,
+    h % kvh == 0. Layout is no part of it: the entries hand the kernels
+    their inputs through ``_kernel_input``."""
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v) + more)
+            and q.shape[3] in (64, 128) and q.shape[1] % k.shape[1] == 0)
+
+
+def _supported_on_cuda(q, k, v, *more) -> bool:
+    """The port's ``_supported_on_tpu``: CUDA inputs the kernels take. The
+    rest take the plain versions."""
+    return q.is_cuda and _kernel_takes(q, k, v, *more)
+
+
+def _kernel_input(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: contiguous, at a 16-byte aligned
+    address (TMA's rule). A view that is neither is copied into a fresh
+    tensor, so that a view the predicate accepts still launches."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _check_shapes(name: str, q, k, v, same_length: bool = False):
+    """Raise on inputs no path takes: q (b, h, sq, hd) and k/v (b, kvh,
+    sk, hd), h % kvh == 0, sq == sk where ``same_length``, all on q's
+    device."""
+    b, h, sq, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[3] != hd or (same_length and k.shape[2] != sq):
+        raise ValueError(f"k/v must be (b, kvh, {'s' if same_length else 'sk'}"
+                         f", hd) matching q {tuple(q.shape)}; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if h % k.shape[1] != 0:
+        raise ValueError(f"heads {h} not a multiple of kv heads {k.shape[1]}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: every input must be on q's device")
+
+
 def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
                   fp32=None):
     """Raise on inputs the CUDA kernels do not take, before anything is
     built or launched: q (b, h, sq, hd) and k/v (b, kvh, sk, hd) in bf16,
     head_dim 64 or 128, h % kvh == 0, sq == sk where ``same_length``;
     ``bf16`` / ``fp32`` map the names of further inputs to (tensor, shape).
-    Every input contiguous and on q's device; q, k and v 16-byte
+    Every input contiguous and on q's device; q, k, v and dO 16-byte
     aligned."""
     extra = {**(bf16 or {}), **(fp32 or {})}
     wrong = {n: t.dtype for n, t in [("q", q), ("k", k), ("v", v)] + [
@@ -186,16 +232,10 @@ def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
         raise TypeError(f"{kernel} takes bf16 q/k/v "
                         f"{' '.join(bf16 or ())} and fp32 "
                         f"{' '.join(fp32 or ())}; got {wrong}")
-    b, h, sq, hd = q.shape
+    hd = q.shape[3]
     if hd not in (64, 128):
         raise ValueError(f"{kernel} takes head_dim 64 or 128, got {hd}")
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
-            or k.shape[3] != hd or (same_length and k.shape[2] != sq):
-        raise ValueError(f"k/v must be (b, kvh, {'s' if same_length else 'sk'}"
-                         f", hd) matching q {tuple(q.shape)}; got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if h % k.shape[1] != 0:
-        raise ValueError(f"heads {h} not a multiple of kv heads {k.shape[1]}")
+    _check_shapes(kernel, q, k, v, same_length)
     bad = {n: (tuple(t.shape), shape) for n, (t, shape) in extra.items()
            if tuple(t.shape) != shape}
     if bad:
@@ -205,10 +245,11 @@ def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
         raise ValueError(f"{kernel} takes contiguous inputs")
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{kernel}: every input must be on q's device")
-    # the forward kernels read q, k and v through TMA, which needs 16-byte
-    # aligned global addresses (the backward's 16-byte loads do too)
-    unaligned = [n for n, t in (("q", q), ("k", k), ("v", v))
-                 if t.data_ptr() % 16]
+    # the kernels read q, k, v and dO through TMA (K2 by 16-byte loads),
+    # which needs 16-byte aligned global addresses
+    read = [("q", q), ("k", k), ("v", v)] + [
+        ("dO", t) for n, (t, _) in (bf16 or {}).items() if n == "dO"]
+    unaligned = [n for n, t in read if t.data_ptr() % 16]
     if unaligned:
         raise ValueError(f"{kernel}: {', '.join(unaligned)} not at a 16-byte "
                          f"aligned address (data_ptr() % 16 != 0), as a view "
@@ -282,7 +323,7 @@ def _launch_dkv(q, k, v, g, lse, delta, causal: bool,
     global flash_bwd_dkv_launches
     from ray_tpu_torch.ops import _build
 
-    lib = _build.load("flash_bwd")
+    lib = _build.load("flash_bwd_dkv")
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     dt = torch.float32 if dkv_fp32 else k.dtype
@@ -342,11 +383,16 @@ def _hop_bwd_cuda(q, k, v, g, lse, delta, causal: bool):
 
 class _FlashAttn(torch.autograd.Function):
     """The JAX package's ``_flash_bhsd`` custom VJP: K1 forward, K2 and K3
-    backward on CUDA; their plain versions on the CPU."""
+    backward for inputs the kernels take (``_supported_on_cuda``); their
+    plain versions for the rest, on the inputs' device. The forward's
+    choice holds for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.is_cuda:
+        _check_shapes("flash attention", q, k, v)
+        ctx.kernel = _supported_on_cuda(q, k, v)
+        if ctx.kernel:
+            q, k, v = (_kernel_input(t) for t in (q, k, v))
             o, lse = _flash_fwd_cuda(q, k, v, causal)
         else:
             o, lse = _attention_reference(q, k, v, causal)
@@ -357,8 +403,8 @@ class _FlashAttn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        g = g.contiguous()
-        if q.is_cuda:
+        g = _kernel_input(g)
+        if ctx.kernel:
             dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, g, ctx.causal)
         else:
             dq, dk, dv = _flash_bwd_reference(q, k, v, o, lse, g, ctx.causal)
@@ -366,15 +412,17 @@ class _FlashAttn(torch.autograd.Function):
 
 
 class _FlashChunk(torch.autograd.Function):
-    """The JAX package's ``flash_chunk_bhsd`` custom VJP: K4 forward on
-    CUDA, ``_chunk_xla`` on the CPU. The residuals are the six inputs, and
-    the backward is autograd of ``_chunk_xla`` on them
-    (``_chunk_bwd_rule``)."""
+    """The JAX package's ``flash_chunk_bhsd`` custom VJP: K4 forward for
+    inputs it takes (``_supported_on_cuda``), ``_chunk_xla`` for the rest.
+    The residuals are the six inputs, and the backward is autograd of
+    ``_chunk_xla`` on them (``_chunk_bwd_rule``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, o, m, l, causal):
-        if q.is_cuda:
-            out = _flash_chunk_cuda(q, k, v, o, m, l, causal)
+        _check_shapes("flash_chunk_bhsd", q, k, v)
+        if _supported_on_cuda(q, k, v):
+            out = _flash_chunk_cuda(*(_kernel_input(t)
+                                      for t in (q, k, v, o, m, l)), causal)
         else:
             out = _chunk_xla(q, k, v, o, m, l, causal)
         ctx.save_for_backward(q, k, v, o, m, l)
@@ -398,6 +446,8 @@ def flash_attention_bhsd(q, k, v, causal: bool = True,
                          block_q: int = 512, block_k: int = 512):
     """q: (batch, heads, seq, head_dim); k/v: (batch, kv_heads, seq, head_dim).
 
+    The kernels (K1 forward, K2 and K3 backward) for CUDA inputs that
+    ``_supported_on_cuda`` accepts, the plain versions for the rest.
     ``block_q``/``block_k`` keep the JAX signature; the Hopper kernel picks
     its own 64-row tiles."""
     if q.is_cuda or q.device.type == "cpu":
@@ -421,9 +471,10 @@ def flash_chunk_bhsd(q, k, v, o, m, l, causal: bool = False,
     o (b, h, sq, hd), m/l (b, h, sq, 1) fp32 (m = -inf, l = o = 0 is a
     fresh state). Returns the new (o, m, l), o un-normalised.
 
-    K4 on CUDA (no (sq, sk) scores in device memory); the backward
-    recomputes the hop in plain PyTorch, so the residuals are the six
-    inputs. ``block_q``/``block_k`` keep the JAX signature."""
+    K4 for CUDA inputs it takes (no (sq, sk) scores in device memory),
+    ``_chunk_xla`` for the rest; the backward recomputes the hop in plain
+    PyTorch, so the residuals are the six inputs. ``block_q``/``block_k``
+    keep the JAX signature."""
     if q.is_cuda or q.device.type == "cpu":
         return _FlashChunk.apply(q, k, v, o, m, l, causal)
     raise ValueError(f"flash_chunk_bhsd has no path for device {q.device}")
@@ -433,11 +484,14 @@ def flash_hop_bwd(q, k, v, g, lse, delta, causal: bool,
                   block_q: int = 512, block_k: int = 512):
     """Backward of one ring-attention hop given the GLOBAL lse/delta rows
     (b, h, sq, 1) fp32 that the ring forward saved: (dq, dk, dv) in fp32,
-    dk/dv at k's kv heads. K2 and K3 with fp32 outputs (K5) on CUDA,
-    ``_hop_bwd_xla`` on the CPU. ``block_q``/``block_k`` keep the JAX
+    dk/dv at k's kv heads. K2 and K3 with fp32 outputs (K5) for CUDA
+    inputs they take (``_supported_on_cuda``, dO included),
+    ``_hop_bwd_xla`` for the rest. ``block_q``/``block_k`` keep the JAX
     signature."""
-    if q.is_cuda:
-        return _hop_bwd_cuda(q, k, v, g, lse, delta, causal)
-    if q.device.type == "cpu":
-        return _hop_bwd_xla(q, k, v, g, lse, delta, causal)
-    raise ValueError(f"flash_hop_bwd has no path for device {q.device}")
+    if not (q.is_cuda or q.device.type == "cpu"):
+        raise ValueError(f"flash_hop_bwd has no path for device {q.device}")
+    _check_shapes("flash_hop_bwd", q, k, v)
+    if _supported_on_cuda(q, k, v, g):
+        return _hop_bwd_cuda(*(_kernel_input(t)
+                               for t in (q, k, v, g, lse, delta)), causal)
+    return _hop_bwd_xla(q, k, v, g, lse, delta, causal)

@@ -21,6 +21,11 @@ the sharded-training slice, not ported yet.
 A gloo group's transport takes host memory only, so collectives on a gloo
 group stage CUDA tensors through the host (``stage``): that is how several
 ranks share one GPU, where NCCL refuses two ranks on one device.
+
+``all_gather`` is the one collective here with a gradient: the K/V
+all-gather that GSPMD inserts when plain attention meets a sequence sharded
+over sp (``models/llama.py``), whose backward is the matching
+reduce-scatter.
 """
 
 from __future__ import annotations
@@ -109,3 +114,37 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     and in host memory when staged."""
     t = t.contiguous()
     return t.cpu() if staged else t
+
+
+class _AllGather(torch.autograd.Function):
+    """The blocks of every rank of ``group`` concatenated along ``dim`` in
+    rank order; the backward reduce-scatters: each rank gets the sum, over
+    the ranks in rank order, of the gradient of its own block. gloo has no
+    reduce-scatter, so it is an all-to-all and a local sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        wire = to_wire(x, stage(group))
+        parts = [torch.empty_like(wire)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, wire, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        send = to_wire(torch.stack(g.chunk(n, dim=ctx.dim)), stage(ctx.group))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=ctx.group)
+        total = recv[0]
+        for part in recv[1:]:
+            total = total + part
+        return total.to(g.device), None, None
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``x`` of every rank on the mesh's ``axis``, concatenated along
+    ``dim`` in axis order (``lax.all_gather(..., tiled=True)``), with the
+    reduce-scatter as its gradient."""
+    return _AllGather.apply(x, mesh.get_group(axis), dim)

@@ -203,6 +203,21 @@ def forward(shape, tree, tokens, impl, dp, sp):
             axis_index(mesh, "sp") * s // sp)
 
 
+def loss(shape, tree, tokens, impl, dp, sp):
+    """``loss_fn`` on the (dp, sp) mesh (no mesh when dp is None)."""
+    import torch
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models.convert import params_from_jax
+
+    cfg = tl.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
+                         attention_impl=impl, **shape)
+    mesh = None if dp is None else _mesh(dp, sp)
+    with torch.no_grad():
+        return float(tl.loss_fn(cfg, params_from_jax(tree, "cpu"),
+                                torch.from_numpy(tokens), mesh))
+
+
 def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr, dp, sp):
     """Losses of ``steps`` steps of ``make_train_step`` on the (dp, sp)
     mesh from the carried weights; rank 0 also returns the parameters

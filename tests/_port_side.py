@@ -244,6 +244,102 @@ def alignment_check(which, offset):
     return t[which].is_contiguous(), t[which].data_ptr() % 16, err
 
 
+def all_launches():
+    return (tfa.flash_fwd_launches,) + bwd_launches() + (
+        tfa.flash_chunk_launches,)
+
+
+def kernel_takes(case):
+    """``_kernel_takes`` on CPU tensors of case ``case``: q (1, 4, 64, hd),
+    k/v (1, 2, 64, hd), dO like q."""
+    hd = {"bf16_hd64": 64, "hd32": 32}.get(case, 128)
+    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    q, g = (torch.zeros((1, 4, 64, hd), dtype=dt) for _ in range(2))
+    kvh = 3 if case == "heads" else 2
+    k, v = (torch.zeros((1, kvh, 64, hd), dtype=dt) for _ in range(2))
+    n = q.numel()
+    if case == "unaligned_q":  # a contiguous view at storage offset 1
+        q = torch.zeros(n + 16, dtype=dt)[1:n + 1].view(q.shape)
+    if case == "unaligned_dO":
+        g = torch.zeros(n + 16, dtype=dt)[1:n + 1].view(q.shape)
+    return tfa._kernel_takes(q, k, v, g)
+
+
+def _view(t, how):
+    """A view of ``t``'s values: "transposed" (a (b, s, h, hd) tensor's
+    transpose, not contiguous) or "offset" (contiguous, at storage offset
+    1 element, not 16-byte aligned)."""
+    if how == "transposed":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    view = flat[1:t.numel() + 1].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def kernel_input(how):
+    """``_kernel_input`` of a bf16 (1, 4, 64, 64) tensor given "aligned"
+    or as a ``_view``: (the same tensor returned?, contiguous?, its
+    data_ptr() % 16, its values equal?)."""
+    t = torch.randn((1, 4, 64, 64), generator=torch.Generator().manual_seed(
+        0)).bfloat16()
+    x = t if how == "aligned" else _view(t, how)
+    y = tfa._kernel_input(x)
+    return (y is x, y.is_contiguous(), y.data_ptr() % 16,
+            bool(torch.equal(y, t)))
+
+
+def routed(entry, case, args, cots, causal):
+    """``entry`` (``flash_attention_bhsd``, ``flash_chunk_bhsd`` or
+    ``flash_hop_bwd``) on the CPU with q, k, v (and the hop's dO) in bf16
+    for case "hd32" and fp32 for case "fp32", or in bf16 as views (q and
+    dO "transposed", k and v "offset") for case "view": (whether the
+    kernels take the inputs, the outputs, the gradients of the inputs under
+    cotangents ``cots`` (none for the hop, itself a gradient), and every
+    launch counter before and after)."""
+    n_bf16 = 4 if entry == "flash_hop_bwd" else 3
+    dt = torch.float32 if case == "fp32" else torch.bfloat16
+    xs = [_T(a).to(dt) if i < n_bf16 else _T(a) for i, a in enumerate(args)]
+    if case == "view":
+        xs[:n_bf16] = [_view(x, "offset" if i in (1, 2) else "transposed")
+                       for i, x in enumerate(xs[:n_bf16])]
+    before = all_launches()
+    takes = tfa._kernel_takes(*xs[:3], *xs[3:n_bf16])
+    if entry != "flash_hop_bwd":
+        for x in xs:
+            x.requires_grad_()
+    out = getattr(tfa, entry)(*xs, causal)
+    outs = [out] if entry == "flash_attention_bhsd" else list(out)
+    grads = []
+    if entry != "flash_hop_bwd":
+        grads = torch.autograd.grad(outs, xs, [_T(c).to(o.dtype)
+                                               for c, o in zip(cots, outs)])
+    return (takes, [_np(o.float()) for o in outs],
+            [_np(x.float()) for x in grads], before, all_launches())
+
+
+def dO_alignment_check(offset):
+    """``_check_inputs`` as the K2/K3 wrapper calls it with dO a contiguous
+    bf16 view at storage offset ``offset`` elements: (its data_ptr() % 16,
+    the ValueError's text or None)."""
+    b, h, kvh, s, hd = 1, 4, 2, 64, 128
+    dt = torch.bfloat16
+    q, o = (torch.zeros((b, h, s, hd), dtype=dt) for _ in range(2))
+    k, v = (torch.zeros((b, kvh, s, hd), dtype=dt) for _ in range(2))
+    n = q.numel()
+    g = torch.zeros(n + 16, dtype=dt)[offset:offset + n].view(q.shape)
+    try:
+        tfa._check_inputs("flash_bwd kernels", q, k, v, same_length=True,
+                          bf16={"o": (o, tuple(q.shape)),
+                                "dO": (g, tuple(q.shape))},
+                          fp32={"lse": (torch.zeros((b, h, s, 1)),
+                                        (b, h, s, 1))})
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return g.data_ptr() % 16, err
+
+
 def build_without_nvcc(tmp):
     """(lib path stable?, error text) of a build where there is no nvcc."""
     saved = (_build._BUILD, os.environ.get("PATH"),

@@ -1,12 +1,13 @@
 """Parity of the PyTorch port's sequence-parallel model with the JAX package.
 
 ``MeshSpec`` against JAX's, and ``MeshSpec.build`` on a 4-rank gloo group
-(one process a rank, ``_port_ranks``); then ``forward`` with
-``attention_impl`` "ring" and "ulysses" on an sp 4 and a dp 2 x sp 2 mesh
-against JAX's ``forward(cfg, params, tokens, mesh)``, each rank's logits
-block against its slice of JAX's global logits; and ``make_train_step`` on
-dp 2 x sp 2 against JAX's on the same mesh shape, 3 AdamW steps from the
-same weights (carried by ``params_from_jax``) on the same global batch.
+(one process a rank, ``_port_ranks``); then ``forward`` with every
+``attention_impl`` on an sp 4 and a dp 2 x sp 2 mesh against JAX's
+``forward(cfg, params, tokens, mesh)``, each rank's logits block against
+its slice of JAX's global logits; ``loss_fn`` with a mesh; and
+``make_train_step`` on dp 2 x sp 2 against JAX's on the same mesh shape, 3
+AdamW steps from the same weights (carried by ``params_from_jax``) on the
+same global batch.
 All fp32 on the CPU, with 8 query and 4 kv heads so that Ulysses can split
 them over sp 4. The port runs in a spawned child (``_port_proc``)."""
 
@@ -83,6 +84,10 @@ def test_mesh_build_places_ranks_as_jax_places_devices(port):
 def test_forward_on_a_mesh_matches_jax(port, weights, impl, dp, sp):
     """Each rank's (b/dp, s/sp) block of the logits against its slice of
     JAX's ``forward`` on the same mesh shape (global tokens)."""
+    _check_forward_blocks(port, weights, impl, dp, sp)
+
+
+def _check_forward_blocks(port, weights, impl, dp, sp):
     jp, tree = weights
     toks = _tokens(2, 32, seed=dp + sp)
     mesh = MeshSpec(dp=dp, sp=sp).build(jax.devices()[:WORLD])
@@ -100,18 +105,50 @@ def test_forward_on_a_mesh_matches_jax(port, weights, impl, dp, sp):
     assert seen.all()  # the blocks tile the global logits
 
 
-def test_plain_attention_refuses_a_sequence_sharded_mesh(port, weights):
-    """"xla" and "flash" attend within one rank's block, which on sp > 1
-    is not the model's attention: the port refuses rather than compute
-    it."""
-    for impl in ("xla", "flash"):
-        with pytest.raises(RuntimeError, match="'ring' or 'ulysses'"):
-            port("sp_call", "forward", SHAPE, weights[1], _tokens(2, 32, 0),
-                 impl, 1, 4)
+@pytest.mark.parametrize("impl,dp,sp", [("xla", 1, 4), ("flash", 1, 4),
+                                        ("xla", 2, 2), ("flash", 2, 2)])
+def test_plain_attention_on_a_sequence_sharded_mesh_matches_jax(
+        port, weights, impl, dp, sp):
+    """"xla" and "flash" on sp > 1: JAX's GSPMD all-gathers K and V and
+    every query attends to the whole sequence; the port all-gathers K and
+    V over the sp group and offsets the causal mask to the rank's block.
+    Each rank's logits block against its slice of JAX's."""
+    _check_forward_blocks(port, weights, impl, dp, sp)
+
+
+@pytest.mark.parametrize("impl,dp,sp", [("xla", None, None), ("xla", 1, 4),
+                                        ("flash", 2, 2), ("ring", 2, 2)])
+def test_loss_fn_on_a_mesh_matches_jax(port, weights, impl, dp, sp):
+    """``loss_fn(cfg, params, tokens, mesh)`` against JAX's on the same
+    mesh shape (and with no mesh): every rank returns the global loss."""
+    _check_loss(port, weights, impl, dp, sp, seq=33)  # 32 with a target
+
+
+@pytest.mark.parametrize("impl,dp,sp", [("xla", 1, 4), ("flash", 1, 4),
+                                        ("xla", 2, 2), ("flash", 2, 2)])
+def test_loss_fn_on_a_mesh_at_an_even_length_matches_jax(port, weights, impl,
+                                                         dp, sp):
+    """As above at 32 tokens: the 31 positions with a target do not divide
+    by sp. JAX's sharding takes the uneven blocks; the port pads the last
+    block and masks its padding out of the loss."""
+    _check_loss(port, weights, impl, dp, sp, seq=32)
+
+
+def _check_loss(port, weights, impl, dp, sp, seq):
+    jp, tree = weights
+    toks = _tokens(2, seq, seed=7)
+    mesh = None if dp is None else MeshSpec(dp=dp, sp=sp).build(
+        jax.devices()[:WORLD])
+    cfg = _jcfg(attention_impl=impl)
+    want = float(jax.jit(lambda p, t: jl.loss_fn(cfg, p, t, mesh))(
+        jp, jnp.asarray(toks)))
+    for got in port("sp_call", "loss", SHAPE, tree, toks, impl, dp, sp):
+        np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("impl,remat", [("ring", False), ("ring", "dots"),
-                                        ("ulysses", False)])
+                                        ("ulysses", False), ("xla", False),
+                                        ("flash", False)])
 def test_train_step_on_dp2_sp2_matches_jax(port, weights, impl, remat):
     """3 AdamW steps on the dp 2 x sp 2 mesh: the global loss of each step
     and the parameters after them against JAX's ``make_train_step`` on the
