@@ -15,7 +15,8 @@ runs nine phases and fails (exit 1) if any check fails:
 * k23     — the backward kernels (K2 dq, K3 dk/dv) against their plain
             version on the same o and lse, at the training flagship's shape,
             Llama-3-8B's heads, a ragged s and an MHA hd-64 shape, causal
-            and not: relative error of each gradient, kernel / plain ms, the
+            and not: relative error of each gradient and of the delta K2
+            writes, two K2 launches bitwise equal, kernel / plain ms, the
             bound, and SDPA's backward as the yardstick.
 * forward — ``forward`` at llama3_8b (full width, full depth, random bf16
             weights from a seed) on 1 x 2048 tokens with
@@ -29,8 +30,9 @@ runs nine phases and fails (exit 1) if any check fails:
             width and depth, fp32 params, bf16 compute, remat "dots") takes
             10 timed AdamW steps on one seeded 8 x 2048 batch: finite,
             falling loss, K1/K2/K3 launches per step, tokens/s, MFU, peak
-            memory, one profiled step; then flash against xla on one step's
-            loss and gradients.
+            memory, one profiled step, the kernels of one flash backward
+            (K2 and K3 alone); then flash against xla on one step's loss
+            and gradients.
 * k4      — the ring-hop kernel (K4) against its plain version
             (``_chunk_xla``) at the training ring's hop (b1 h8 kvh4 s2048
             hd128) and Llama-3-8B's heads (s512), unmasked and diagonal
@@ -244,28 +246,34 @@ K23_MAIN_SHAPE = K23_SHAPES[0]
 # relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
 TOL_GRAD_NORM = 1e-2
 TOL_GRAD_MAX = 2e-2
+# the delta K2 writes against torch's fp32 rowsum of the same bf16 values:
+# the same sum in another order, ||err|| / ||ref||
+TOL_DELTA = 1e-5
 
 
-def _k23_bounds(b, h, kvh, s, hd, causal, grad_bytes=2):
+def _k23_bounds(b, h, kvh, s, hd, causal, grad_bytes=2, fused_delta=True):
     """{kernel: (bound_ms, bound_by, flops, bytes)} for K2 and K3: the JAX
     cost estimates' 3 and 4 products of 2 b h hd per (q, k) pair, over the
-    s(s+1)/2 pairs the causal mask keeps; q, k, v, dO, lse and delta read
-    once, the gradients written once (``grad_bytes`` an element: 4 for the
-    ring hop's fp32 gradients, K5)."""
+    s(s+1)/2 pairs the causal mask keeps; each input read once, each output
+    written once: q, k, v, dO, lse and delta read, the gradients written
+    (``grad_bytes`` an element: 4 for the ring hop's fp32 gradients, K5),
+    except that K2 with ``fused_delta`` (the training path's) reads o and
+    writes delta instead of reading delta."""
     pairs = s * (s + 1) / 2 if causal else s * s
     qbytes, kvbytes, rows = 2.0 * b * h * s * hd, 2.0 * b * kvh * s * hd, \
         4.0 * b * h * s
     read = 2 * qbytes + 2 * kvbytes + 2 * rows
     w = grad_bytes / 2
+    k2_delta = qbytes if fused_delta else 0.0  # o read; delta written, not read
     out = {}
-    for name, products, written in (("k2", 3, w * qbytes),
-                                    ("k3", 4, w * 2 * kvbytes)):
+    for name, products, moved in (("k2", 3, read + k2_delta + w * qbytes),
+                                  ("k3", 4, read + w * 2 * kvbytes)):
         flops = 2.0 * products * b * h * hd * pairs
         t_ops = flops / PEAK_BF16_FLOPS
-        t_bytes = (read + written) / PEAK_HBM_BYTES
+        t_bytes = moved / PEAK_HBM_BYTES
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes", flops,
-                     read + written)
+                     moved)
     return out
 
 
@@ -308,9 +316,22 @@ def phase_k23(dev):
                 row[f"rel_max_{name}"] = rel_max
                 ok = ok and finite and rel_norm <= TOL_GRAD_NORM \
                     and rel_max <= TOL_GRAD_MAX
+            # the delta K2 writes (the K3 above read it), and two K2 launches
+            # on the same inputs: bitwise equal (no atomics)
+            delta = (g.float() * o.float()).sum(-1)
+            fused = [torch.full_like(delta, float("nan")) for _ in range(2)]
+            dq2 = [fa._launch_dq(q, k, v, g, lse, d, causal, o=o)
+                   for d in fused]
+            torch.cuda.synchronize()
+            row["rel_norm_delta"] = ((fused[0] - delta).norm()
+                                     / delta.norm()).item()
+            row["k2_bitwise_equal"] = torch.equal(dq2[0], dq2[1]) \
+                and torch.equal(fused[0], fused[1]) and torch.equal(dq2[0], dq)
+            ok = ok and row["rel_norm_delta"] <= TOL_DELTA \
+                and row["k2_bitwise_equal"]
             if (b, h, kvh, s, hd) == K23_MAIN_SHAPE and causal:
-                # the fp32-dq variant (the ring-hop backward's) at one shape
-                delta = (g.float() * o.float()).sum(-1)
+                # the fp32-dq variant (the ring-hop backward's: delta read)
+                # at one shape
                 dq32 = fa._launch_dq(q, k, v, g, lse, delta, causal,
                                      dq_fp32=True)
                 ref32 = fa._flash_bwd_reference(q.float(), k, v, o, lse, g,
@@ -320,9 +341,9 @@ def phase_k23(dev):
                 ok = ok and dq32.dtype == torch.float32 and bool(
                     torch.isfinite(dq32).all()) and rel_norm <= TOL_GRAD_NORM \
                     and rel_max <= TOL_GRAD_MAX
-            delta = (g.float() * o.float()).sum(-1)
+            # K2 as the training path launches it: delta computed and written
             row["k2_ms"] = _time_ms(
-                lambda: fa._launch_dq(q, k, v, g, lse, delta, causal))
+                lambda: fa._launch_dq(q, k, v, g, lse, fused[0], causal, o=o))
             row["k3_ms"] = _time_ms(
                 lambda: fa._launch_dkv(q, k, v, g, lse, delta, causal))
             row["plain_ms"] = _time_ms(lambda: fa._flash_bwd_reference(
@@ -348,7 +369,9 @@ def phase_k23(dev):
             rows.append(row)
             print(json.dumps({"k23": row}), flush=True)
             _check(ok, f"K2/K3 outside ||err||/||ref|| <= {TOL_GRAD_NORM}, "
-                   f"max|err| <= {TOL_GRAD_MAX} max|ref| or not finite: {row}")
+                   f"max|err| <= {TOL_GRAD_MAX} max|ref|, delta beyond "
+                   f"{TOL_DELTA}, two K2 launches unequal or not finite: "
+                   f"{row}")
     return rows
 
 
@@ -513,7 +536,8 @@ def phase_k5(dev):
                 sd, (qs, ks, vs), g, retain_graph=True))
             del sd, qs, ks, vs
             for name, (bms, by, flops, _) in _k23_bounds(
-                    b, h, kvh, s, hd, causal, grad_bytes=4).items():
+                    b, h, kvh, s, hd, causal, grad_bytes=4,
+                    fused_delta=False).items():
                 key = {"k2": "k5a", "k3": "k5b"}[name]
                 row[f"{key}_bound_ms"] = bms
                 row[f"{key}_bound_by"] = by
@@ -1014,6 +1038,7 @@ def phase_train(dev):
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
         launches=launches)
     out["profile"] = _train_profile(train_step, state, tokens)
+    out["bwd_call"] = _bwd_call_kernels(dev, cfg)
     _check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
     _check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     n = cfg.n_layers * TRAIN_STEPS
@@ -1048,6 +1073,9 @@ def phase_train(dev):
                                grad_cosine=cos, grad_cosine_min=min(
                                    cos.values()))
     print(json.dumps({"train": out}), flush=True)
+    _check(not out["bwd_call"]["delta_pass"],
+           f"the flash backward launched kernels besides K2 and K3: "
+           f"{out['bwd_call']}")
     _check(abs(lf - lx) <= TOL_LOSS_REL * abs(lx),
            f"flash vs xla loss {lf} vs {lx} beyond {TOL_LOSS_REL} relative")
     _check(min(cos.values()) >= GRAD_COS_MIN,
@@ -1086,6 +1114,42 @@ def _train_profile(train_step, state, tokens):
     if dev_ms > 0:
         out["device_idle_share"] = 1.0 - dev_ms / host_ms
     return out
+
+
+def _bwd_call_kernels(dev, cfg):
+    """The CUDA kernels, by name and count, that one flash backward
+    (``_flash_bwd_cuda``) launches at the train phase's attention shape
+    under torch.profiler: K2 and K3, and in ``delta_pass`` any other (the
+    eager rowsum of dO * o, where delta is not computed by K2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    hd = cfg.dim // cfg.n_heads
+
+    def randn(heads):
+        return torch.randn((TRAIN_BATCH, heads, TRAIN_SEQ, hd),
+                           generator=gen, device=dev).bfloat16()
+
+    q, g, k, v = (randn(cfg.n_heads), randn(cfg.n_heads),
+                  randn(cfg.n_kv_heads), randn(cfg.n_kv_heads))
+    o, lse = fa._flash_fwd_cuda(q, k, v, True)
+    fa._flash_bwd_cuda(q, k, v, o, lse, g, True)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fa._flash_bwd_cuda(q, k, v, o, lse, g, True)
+        torch.cuda.synchronize()
+    kernels = {e.key[:80]: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")}
+    if not kernels:
+        return dict(kernels="not measured", delta_pass={})
+    return dict(kernels=kernels, delta_pass={
+        name: n for name, n in kernels.items()
+        if "flash_bwd_dq_kernel" not in name
+        and "flash_bwd_dkv_kernel" not in name})
 
 
 # the sequence-parallel path: 4 ranks on the mesh's sp axis. One card takes

@@ -74,7 +74,6 @@
 #include <stdint.h>
 
 #include "hopper_common.cuh"
-#include "mma_tile.cuh"
 
 namespace {
 namespace dkv {
@@ -119,62 +118,6 @@ struct Args {
   float scale, scale_log2;
   int kt_major;  // grid (b kvh, key tiles) when 1, else (key tiles, b kvh)
 };
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// issue D = A B^T over HD (one commit group): A (64 rows) and B (64 rows)
-// K-major, 128-byte swizzled, 64-column halves 64 x 128 bytes apart; a
-// k-step of 16 columns is 32 bytes into a half
-template <int HD>
-__device__ __forceinline__ void issue_nt(float (&d)[BQ / 2], uint32_t a_tile,
-                                         uint32_t b_tile) {
-  const uint64_t da = desc_sw128(a_tile, 16, 1024);
-  const uint64_t db = desc_sw128(b_tile, 16, 1024);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const uint32_t off = (ks / 4) * 64 * 128 + (ks % 4) * 32;
-    wgmma_ss<BQ>(d, da + (off >> 4), db + (off >> 4), ks > 0);
-  }
-  wg_commit();
-}
-
-// issue D += A B (one commit group): A (64 x BQ) in registers, B the BQ x HD
-// tile read MN-major (transpose flag; halves BQ x 128 bytes apart, a k-step
-// of 16 rows is 2048 bytes)
-template <int HD>
-__device__ __forceinline__ void issue_nn(float (&d)[HD / 2],
-                                         const uint32_t (&a)[BQ / 16][4],
-                                         uint32_t b_tile) {
-  const uint64_t db = desc_sw128(b_tile, BQ * 128, 1024);
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk)
-    wgmma_rs<HD>(d, a[kk], db + ((kk * 16 * 128) >> 4));
-  wg_commit();
-}
-
-// fp32 accumulator (64 x BQ) in bf16, in the A-operand layout of a product
-// over BQ: k-step kk covers accumulator column chunks 2 kk and 2 kk + 1
-__device__ __forceinline__ void to_a(const float (&c)[BQ / 2],
-                                     uint32_t (&a)[BQ / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
-  }
-}
-
-// every warp arrives once on ``bar`` (count 4), after its products have
-// read the stage
-__device__ __forceinline__ void release(uint32_t bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
 
 // the 128 threads of warpgroup ``wg`` wait for each other (named barrier
 // 1 + wg; 0 is __syncthreads)
@@ -294,8 +237,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     reg_fence(st);
     reg_fence(dpt);
     wg_fence();
-    issue_nt<HD>(st, sK, q_tile);    // S^T = K Q^T
-    issue_nt<HD>(dpt, sV, do_tile);  // dP^T = V dO^T
+    issue_nt<HD, BQ>(st, sK, q_tile);    // S^T = K Q^T
+    issue_nt<HD, BQ>(dpt, sV, do_tile);  // dP^T = V dO^T
     wg_wait<1>();
     reg_fence(st);
 
@@ -319,7 +262,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         st[4 * i + e] = p;
       }
     }
-    to_a(st, pa);
+    to_a<BQ>(st, pa);
     wg_wait<0>();
     reg_fence(dpt);
 #pragma unroll
@@ -332,15 +275,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - dl);
       }
     }
-    to_a(dpt, da);
+    to_a<BQ>(dpt, da);
 
     reg_fence(dv);
     reg_fence(dk);
     reg_fence(pa);
     reg_fence(da);
     wg_fence();
-    issue_nn<HD>(dv, pa, do_tile);  // dV += P^T dO
-    issue_nn<HD>(dk, da, q_tile);   // dK += dS^T Q
+    issue_nn<HD, BQ>(dv, pa, do_tile);  // dV += P^T dO
+    issue_nn<HD, BQ>(dk, da, q_tile);   // dK += dS^T Q
     wg_wait<0>();
     reg_fence(dv);
     reg_fence(dk);

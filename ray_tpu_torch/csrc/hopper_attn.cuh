@@ -1,7 +1,8 @@
 // The attention forward that K1 (flash_fwd.cu) and K4 (flash_chunk.cu)
 // share, written for Hopper (sm_90a): TMA into a ring of K/V stages in
 // shared memory, wgmma for both products, two consumer warpgroups a block,
-// on the mbarrier / TMA / wgmma helpers of hopper_common.cuh.
+// on the mbarrier / TMA / wgmma helpers and the paired grid of
+// hopper_common.cuh.
 //
 // A block is 256 threads: two warpgroups, each owning 64 query rows (one
 // wgmma M tile). Thread 0 also issues every copy: each warpgroup's Q tile
@@ -55,7 +56,6 @@
 #include <stdint.h>
 
 #include "hopper_common.cuh"
-#include "mma_tile.cuh"
 
 namespace {
 namespace hattn {
@@ -102,37 +102,6 @@ struct Args {
   int h, kvh, sq, sk;
   float scale_log2;  // log2(e) / sqrt(hd)
 };
-
-// the q-tile consumer c of block j takes (-1: none)
-__device__ __forceinline__ int pair_tile(int j, int c, int n_qt, bool causal) {
-  if (causal) {
-    const int qt = c == 0 ? j : n_qt - 1 - j;
-    return c == 1 && qt == j ? -1 : qt;
-  }
-  const int qt = 2 * j + c;
-  return qt < n_qt ? qt : -1;
-}
-
-// the K/V tiles q-tile qt reads: all of them, or when causal those up to
-// its last row's position
-__device__ __forceinline__ int tiles_for(int qt, int sq, int sk, bool causal) {
-  if (qt < 0) return 0;
-  const int keys = causal ? min(sk, min(sq, (qt + 1) * BM)) : sk;
-  return (keys + BN - 1) / BN;
-}
-
-// every warp of a consumer arrives once on ``bar`` (its count is 8: 4 warps
-// of 2 consumers), after its own wgmma reads of the stage have completed
-__device__ __forceinline__ void release(uint32_t bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The online-softmax step of one K/V tile for one consumer thread: the
 // raw scores sc (the thread's elements of S = Q K^T for keys n0..n0+BN)
@@ -196,19 +165,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
     l[r] = l[r] * corr[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
 }
 
-// P (the softmax's sc) in bf16, in the A-operand layout of O += P V:
-// k-step kk covers accumulator column chunks 2 kk and 2 kk + 1
-__device__ __forceinline__ void to_bf16(const float (&sc)[BN / 2],
-                                        uint32_t (&p)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    p[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 template <int HD>
 __device__ __forceinline__ void rescale(float (&o)[HD / 2],
                                         const float (&corr)[2]) {
@@ -219,36 +175,6 @@ __device__ __forceinline__ void rescale(float (&o)[HD / 2],
     o[4 * i + 2] *= corr[1];
     o[4 * i + 3] *= corr[1];
   }
-}
-
-// issue S = Q K^T (one commit group): Q and K K-major, 128-byte swizzled,
-// 64-column halves; a k-step of 16 columns is 32 bytes into a half. A step
-// adds its byte offset / 16 to the descriptors' start-address field.
-template <int HD>
-__device__ __forceinline__ void issue_s(float (&sc)[BN / 2], uint32_t q_tile,
-                                        uint32_t k_tile) {
-  const uint64_t dq = desc_sw128(q_tile, 16, 1024);
-  const uint64_t dk = desc_sw128(k_tile, 16, 1024);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const uint32_t off = (ks % 4) * 32;
-    wgmma_ss<BN>(sc, dq + (((ks / 4) * BM * 128 + off) >> 4),
-                 dk + (((ks / 4) * BN * 128 + off) >> 4), ks > 0);
-  }
-  wg_commit();
-}
-
-// issue O += P V (one commit group): V MN-major, 128-byte swizzled; a
-// k-step of 16 keys is 2048 bytes, the halves BN x 128 bytes apart
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&p)[BN / 16][4],
-                                         uint32_t v_tile) {
-  const uint64_t dv = desc_sw128(v_tile, BN * 128, 1024);
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<HD>(o, p[kk], dv + ((kk * 16 * 128) >> 4));
-  wg_commit();
 }
 
 template <int HD, bool CAUSAL, bool CARRY>
@@ -270,8 +196,8 @@ attn_fwd(const __grid_constant__ CUtensorMap tq,
   const int n_qt = (a.sq + BM - 1) / BM;
   const int qt0 = pair_tile(j, 0, n_qt, CAUSAL);
   const int qt1 = pair_tile(j, 1, n_qt, CAUSAL);
-  const int nt0 = tiles_for(qt0, a.sq, a.sk, CAUSAL);
-  const int nt1 = tiles_for(qt1, a.sq, a.sk, CAUSAL);
+  const int nt0 = tiles_for<BM, BN>(qt0, a.sq, a.sk, CAUSAL);
+  const int nt1 = tiles_for<BM, BN>(qt1, a.sq, a.sk, CAUSAL);
   const int n_kv = max(nt0, nt1);  // the K/V tiles the block streams
   const int kv_slab = bi * a.kvh + hi / (a.h / a.kvh);
   // thread 0 (of consumer 0, whose q-tile always exists) issues the copies
@@ -409,24 +335,24 @@ attn_fwd(const __grid_constant__ CUtensorMap tq,
     mbar_wait(k_full, 0);
     reg_fence(sc);
     wg_fence();
-    issue_s<HD>(sc, q_tile, sK);
+    issue_nt<HD, BN>(sc, q_tile, sK);
     wg_wait<0>();
     reg_fence(sc);
     release(k_empty);
     softmax(0);
-    to_bf16(sc, p);
+    to_a<BN>(sc, p);
     for (; it < nt; ++it) {
       const int s = it % STAGES, ps = (it - 1) % STAGES;
       mbar_wait(k_full + 8 * s, (it / STAGES) & 1);
       reg_fence(sc);
       wg_fence();
-      issue_s<HD>(sc, q_tile, sK + s * L::KV_BYTES);
+      issue_nt<HD, BN>(sc, q_tile, sK + s * L::KV_BYTES);
       rescale<HD>(o, corr);  // O to tile it-1's max
       mbar_wait(v_full + 8 * ps, ((it - 1) / STAGES) & 1);
       reg_fence(o);
       reg_fence(p);
       wg_fence();
-      issue_pv<HD>(o, p, sV + ps * L::KV_BYTES);
+      issue_nn<HD, BN>(o, p, sV + ps * L::KV_BYTES);
       if (loader) refill(it);
       wg_wait<1>();
       reg_fence(sc);
@@ -436,7 +362,7 @@ attn_fwd(const __grid_constant__ CUtensorMap tq,
       reg_fence(o);
       reg_fence(p);
       release(v_empty + 8 * ps);
-      to_bf16(sc, p);
+      to_a<BN>(sc, p);
     }
     // step nt: the last P V
     const int ps = (nt - 1) % STAGES;
@@ -445,7 +371,7 @@ attn_fwd(const __grid_constant__ CUtensorMap tq,
     reg_fence(o);
     reg_fence(p);
     wg_fence();
-    issue_pv<HD>(o, p, sV + ps * L::KV_BYTES);
+    issue_nn<HD, BN>(o, p, sV + ps * L::KV_BYTES);
     if (loader) refill(nt);
     if (nt < n_kv) pass_k(nt);
     wg_wait<0>();

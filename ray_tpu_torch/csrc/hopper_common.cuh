@@ -1,8 +1,10 @@
 // The Hopper (sm_90a) building blocks that the hand-written attention
 // kernels share: mbarriers, TMA loads through 3-D tensor maps (encoded on
 // the host through the runtime's driver entry point, so no library needs
-// -lcuda), and wgmma with its shared-memory descriptors and fences.
-// hopper_attn.cuh (K1, K4) and flash_bwd_dkv.cu (K3, K5b) run on them.
+// -lcuda), wgmma with its shared-memory descriptors and fences, the
+// products on 128-byte swizzled tiles that the kernels issue, and the
+// paired causal grid. hopper_attn.cuh (K1, K4), flash_bwd.cu (K2, K5a) and
+// flash_bwd_dkv.cu (K3, K5b) run on them.
 
 #pragma once
 
@@ -19,6 +21,17 @@ namespace hattn {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -204,6 +217,89 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 #undef HA_D8
 #undef HA_D32
 #undef HA_D64
+
+// -- products on 128-byte swizzled tiles ----------------------------------------
+//
+// A tile of R rows and HD bf16 columns is HD / 64 column halves of R rows x
+// 128 bytes (one TMA box each), 1024-byte aligned (the swizzle's atom).
+
+// issue D = A B^T over HD (one commit group): A (64 rows) and B (NB rows)
+// K-major; a k-step of 16 columns is 32 bytes into a half. A step adds its
+// byte offset / 16 to the descriptors' start-address field.
+template <int HD, int NB>
+__device__ __forceinline__ void issue_nt(float (&d)[NB / 2], uint32_t a_tile,
+                                         uint32_t b_tile) {
+  const uint64_t da = desc_sw128(a_tile, 16, 1024);
+  const uint64_t db = desc_sw128(b_tile, 16, 1024);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t off = (ks % 4) * 32;
+    wgmma_ss<NB>(d, da + (((ks / 4) * 64 * 128 + off) >> 4),
+                 db + (((ks / 4) * NB * 128 + off) >> 4), ks > 0);
+  }
+  wg_commit();
+}
+
+// issue D += A B (one commit group): A (64 x KB bf16) in registers, in
+// k-steps of 16 (``to_a``'s layout), B the KB x HD tile read MN-major (the
+// transpose flag): halves KB x 128 bytes apart, a k-step of 16 rows is
+// 2048 bytes. The tile is never transposed in memory.
+template <int HD, int KB>
+__device__ __forceinline__ void issue_nn(float (&d)[HD / 2],
+                                         const uint32_t (&a)[KB / 16][4],
+                                         uint32_t b_tile) {
+  const uint64_t db = desc_sw128(b_tile, KB * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < KB / 16; ++kk)
+    wgmma_rs<HD>(d, a[kk], db + ((kk * 16 * 128) >> 4));
+  wg_commit();
+}
+
+// a warpgroup's fp32 accumulator (64 x N) in bf16, in the A-operand layout
+// of a product over N: k-step kk covers accumulator column chunks 2 kk and
+// 2 kk + 1
+template <int N>
+__device__ __forceinline__ void to_a(const float (&c)[N / 2],
+                                     uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// every warp arrives once on ``bar`` (whose count is the number of warps
+// that read the stage), after its own wgmma reads of the stage completed
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// -- the paired grid of K1, K4 and K2 -------------------------------------------
+//
+// A block of two consumer warpgroups takes two BM-row q-tiles of one
+// (batch, head): when causal j and T-1-j (T q-tiles; with odd T the middle
+// tile runs alone), so every block does T+1 tile-rows of work, and 2j and
+// 2j+1 when not. The q-tile consumer c of block j takes (-1: none):
+__device__ __forceinline__ int pair_tile(int j, int c, int n_qt, bool causal) {
+  if (causal) {
+    const int qt = c == 0 ? j : n_qt - 1 - j;
+    return c == 1 && qt == j ? -1 : qt;
+  }
+  const int qt = 2 * j + c;
+  return qt < n_qt ? qt : -1;
+}
+
+// the BN-key K/V tiles q-tile qt (of BM rows) reads: all of them, or when
+// causal those up to its last row's position
+template <int BM, int BN>
+__device__ __forceinline__ int tiles_for(int qt, int sq, int sk, bool causal) {
+  if (qt < 0) return 0;
+  const int keys = causal ? min(sk, min(sq, (qt + 1) * BM)) : sk;
+  return (keys + BN - 1) / BN;
+}
 
 // -- host side -----------------------------------------------------------------
 

@@ -4,10 +4,10 @@ source hash, and loads them with ctypes.
 Each kernel source under ``ray_tpu_torch/csrc/`` exposes a plain C entry
 point (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2, and K5a as its
 fp32-output launch; ``flash_bwd_dkv.cu``: K3, and K5b likewise;
-``flash_chunk.cu``: K4; K1 and K4 share ``hopper_attn.cuh``, which with K3
-runs on ``hopper_common.cuh``; K2 runs on ``mma_tile.cuh``),
-so the build is one ``nvcc`` call per source with no
-PyTorch headers (seconds, not the minutes a torch-extension build takes):
+``flash_chunk.cu``: K4; K1 and K4 share ``hopper_attn.cuh``, which with K2
+and K3 runs on ``hopper_common.cuh``), so the build is one ``nvcc`` call
+per source with no PyTorch headers (seconds, not the minutes a
+torch-extension build takes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so \
@@ -46,9 +46,9 @@ _ENTRIES = {
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
     "flash_bwd": {
-        # q, k, v, dO, lse, delta, dq, b, h, kvh, sq, sk, hd, causal,
-        # dq_fp32, stream
-        "flash_bwd_dq": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
+        # q, k, v, dO, o (or null: delta is read), lse, delta, dq, b, h,
+        # kvh, sq, sk, hd, causal, dq_fp32, stream
+        "flash_bwd_dq": (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_P]),
     },
     "flash_bwd_dkv": {
         # q, k, v, dO, lse, delta, dk, dv, b, h, kvh, sq, sk, hd, causal,

@@ -7,7 +7,8 @@ head ``hi`` to kv head ``hi // (h // kvh)``.
 
 ``flash_attention_bhsd`` is an autograd function (``_FlashAttn``) that
 mirrors the JAX package's custom VJP: the forward saves q, k, v, o and lse,
-the backward computes delta = rowsum(dO * o) and then dq, dk and dv.
+the backward computes delta = rowsum(dO * o) and then dq, dk and dv (on the
+card K2 computes delta in its prologue and writes it for K3).
 
 * CUDA inputs that the hand-written kernels take (``_supported_on_cuda``:
   bf16, head_dim 64 or 128, ``h % kvh == 0``) go to them, or the wrapper
@@ -245,10 +246,10 @@ def _check_inputs(kernel: str, q, k, v, same_length: bool, bf16=None,
         raise ValueError(f"{kernel} takes contiguous inputs")
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{kernel}: every input must be on q's device")
-    # the kernels read q, k, v and dO through TMA (K2 by 16-byte loads),
-    # which needs 16-byte aligned global addresses
+    # the kernels read q, k, v and dO through TMA and K2 reads o by 16-byte
+    # loads, which need 16-byte aligned global addresses
     read = [("q", q), ("k", k), ("v", v)] + [
-        ("dO", t) for n, (t, _) in (bf16 or {}).items() if n == "dO"]
+        (n, t) for n, (t, _) in (bf16 or {}).items() if n in ("dO", "o")]
     unaligned = [n for n, t in read if t.data_ptr() % 16]
     if unaligned:
         raise ValueError(f"{kernel}: {', '.join(unaligned)} not at a 16-byte "
@@ -279,23 +280,25 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool):
-    """delta, then K2 and K3 on q's device and current stream. Returns
-    (dq, dk, dv) in q's, k's and v's dtype."""
+    """K2, which also writes delta = rowsum(dO * o) (the JAX package
+    computes it outside its kernels), then K3 on that delta, on q's device
+    and current stream. Returns (dq, dk, dv) in q's, k's and v's dtype."""
     rows = tuple(q.shape[:3]) + (1,)
     _check_inputs("flash_bwd kernels", q, k, v, same_length=True,
                   bf16={"o": (o, tuple(q.shape)), "dO": (g, tuple(q.shape))},
                   fp32={"lse": (lse, rows)})
-    # delta = rowsum(dO * o) in fp32, outside the kernels as in the JAX
-    # package
-    delta = (g.float() * o.float()).sum(dim=-1)
-    dq = _launch_dq(q, k, v, g, lse, delta, causal)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dq = _launch_dq(q, k, v, g, lse, delta, causal, o=o)
     dk, dv = _launch_dkv(q, k, v, g, lse, delta, causal)
     return dq, dk, dv
 
 
-def _launch_dq(q, k, v, g, lse, delta, causal: bool, dq_fp32: bool = False):
+def _launch_dq(q, k, v, g, lse, delta, causal: bool, dq_fp32: bool = False,
+               o=None):
     """K2 on inputs ``_flash_bwd_cuda`` has checked; lse/delta (b, h, sq)
-    rows. sq and k/v's sk may differ (the ring-hop backward's shape)."""
+    rows. With ``o`` the kernel writes delta = rowsum(dO * o) into
+    ``delta``; without it (the ring hop's global rows) it reads it. sq and
+    k/v's sk may differ (the ring-hop backward's shape)."""
     global flash_bwd_dq_launches
     from ray_tpu_torch.ops import _build
 
@@ -306,8 +309,9 @@ def _launch_dq(q, k, v, g, lse, delta, causal: bool, dq_fp32: bool = False):
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, kvh, sq,
-            sk, hd, int(bool(causal)), int(bool(dq_fp32)),
+            None if o is None else o.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, h, kvh, sq, sk, hd,
+            int(bool(causal)), int(bool(dq_fp32)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd dq kernel launch failed: cudaError {rc}")
