@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs nine phases and fails (exit 1) if any check fails:
+runs ten phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -53,6 +53,16 @@ runs nine phases and fails (exit 1) if any check fails:
             (2048 a rank), one warm-up and 3 steps, losses against a
             single-process "flash" run. Its times are not the ring's speed:
             the ranks time-slice the card.
+* shard   — sharded training on fsdp 2 x tp 2: four processes on the card
+            over gloo as in ``ring``. ``make_train_step`` on the flagship
+            ("flash", remat "dots") at b8 x 2048 from one seed, each rank
+            holding a quarter of the parameters and AdamW moments: one
+            warm-up and 2 timed steps, each loss against the single-device
+            "flash" step, the gathered gradients of the first step and the
+            parameters after it against its, K1 32 / K2 16 / K3 16
+            launches a step a rank at the rank's shape (b4 h4 kvh2 s2048
+            hd128), the step's seconds and each rank's peak memory. Its
+            times measure time-slicing too.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -76,9 +87,10 @@ SEED = 0
 
 # (b, h, kvh, s, hd): the serving path's prompt buckets and the forward's
 # 2048, at Llama-3-8B's heads; one MHA shape at head_dim 64; the training
-# flagship's shape
+# flagship's shape, and a rank's share of it in the shard phase (half the
+# rows over fsdp, half the heads over tp)
 K1_SHAPES = [(1, 32, 8, s, 128) for s in (64, 200, 256, 512, 2048)] + [
-    (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128)]
+    (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128), (4, 4, 2, 2048, 128)]
 K1_MAIN_SHAPE = (1, 32, 8, 512, 128)  # the serve phase's largest bucket
 
 
@@ -237,10 +249,11 @@ def phase_k1(dev):
 
 
 # (b, h, kvh, s, hd) of the K2/K3 check: the training flagship's heads and
-# batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s, and
-# one MHA shape at head_dim 64
+# batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s,
+# one MHA shape at head_dim 64, and a shard-phase rank's share of the
+# flagship (its grid is a quarter of the flagship's)
 K23_SHAPES = [(8, 8, 4, 2048, 128), (1, 32, 8, 2048, 128),
-              (1, 32, 8, 200, 128), (2, 8, 8, 384, 64)]
+              (1, 32, 8, 200, 128), (2, 8, 8, 384, 64), (4, 4, 2, 2048, 128)]
 K23_MAIN_SHAPE = K23_SHAPES[0]
 # each gradient is accumulated in fp32 and rounded to bf16 once (2^-8
 # relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
@@ -986,6 +999,16 @@ TOL_LOSS_REL = 1e-2
 GRAD_COS_MIN = 0.99
 
 
+def _train_tokens(dev):
+    """The train phase's global batch: TRAIN_BATCH x TRAIN_SEQ seeded
+    tokens (the shard phase trains on the same)."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, TRAIN_CFG["vocab_size"], size=(TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+
+
 def _palm_flops_per_token(cfg, seq):
     """bench.py's PaLM-style count: 6N + 12 L dim s."""
     return 6.0 * cfg.num_params() + 12.0 * cfg.n_layers * cfg.dim * seq
@@ -1007,8 +1030,7 @@ def phase_train(dev):
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     # one fixed seeded batch, reused every step (as bench.py does)
-    tokens = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
-        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))).to(data_dev)
+    tokens = _train_tokens(data_dev)
     state, loss = train_step(state, tokens)  # warm-up: cuBLAS, kernels
     losses = [float(loss)]
     torch.cuda.reset_peak_memory_stats()
@@ -1282,10 +1304,23 @@ def _ring_rank_train(dev, mesh):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def _ring_rank(rank, store, device, results):
-    """One rank of the sp mesh on ``device`` (every rank on the one card):
-    joins the gloo group, runs the attention checks and the training run,
-    and puts its results (or its traceback) on ``results``."""
+def _ring_rank(dev, mesh):
+    """One rank of the sp mesh: the attention checks, then the training
+    run."""
+    import torch
+
+    out = {impl: _ring_rank_attention(dev, mesh, impl)
+           for impl in RING_ATTN_IMPLS}
+    torch.cuda.empty_cache()
+    out["train"] = _ring_rank_train(dev, mesh)
+    return out
+
+
+def _rank_main(rank, world, store, device, mesh_axes, work, args, results):
+    """One rank process of a multi-rank phase on ``device`` (every rank on
+    the one card): joins the gloo group of ``world`` ranks, builds
+    ``MeshSpec(**mesh_axes)``, runs ``work(dev, mesh, *args)`` and puts its
+    result (or its traceback) on ``results``."""
     import datetime
     import traceback
 
@@ -1297,21 +1332,61 @@ def _ring_rank(rank, store, device, results):
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{store}", rank=rank,
-            world_size=RING_SP,
+            world_size=world,
             timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
         dev = torch.device(device)
         torch.cuda.set_device(dev)
-        mesh = MeshSpec(sp=RING_SP).build()
-        out = {impl: _ring_rank_attention(dev, mesh, impl)
-               for impl in RING_ATTN_IMPLS}
-        torch.cuda.empty_cache()
-        out["train"] = _ring_rank_train(dev, mesh)
-        results.put((rank, True, out))
+        mesh = MeshSpec(**mesh_axes).build()
+        results.put((rank, True, work(dev, mesh, *args)))
     except Exception:  # the parent fails the run with this traceback
         results.put((rank, False, traceback.format_exc()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _run_ranks(dev, name, mesh_axes, work, *args):
+    """``work(dev, mesh, *args)`` in one process a position of
+    ``MeshSpec(**mesh_axes)``, all on the card ``dev``: their results in
+    rank order. A rank that fails, or no result within
+    ``RING_TIMEOUT_S``, fails the run; every process is ended before this
+    returns."""
+    import multiprocessing
+    import queue
+    import shutil
+    import tempfile
+
+    world = math.prod(mesh_axes.values())
+    ctx = multiprocessing.get_context("spawn")
+    store_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, os.path.join(store_dir, "store"), str(dev), mesh_axes,
+        work, args, results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks, errors = {}, []
+    try:
+        for _ in range(world):
+            try:
+                rank, ok, value = results.get(timeout=RING_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"no result in {RING_TIMEOUT_S} s")
+                break
+            if ok:
+                ranks[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 1)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(store_dir, ignore_errors=True)
+    _check(not errors, f"{name} phase: a rank failed:\n" + "\n".join(errors))
+    return [ranks[r] for r in range(world)]
 
 
 def _flash_train_losses(dev):
@@ -1342,44 +1417,11 @@ def phase_ring(dev):
     against the whole-sequence flash attention, K1-K4 launches counted;
     then the flagship trained on sp 4 with "ring" against a single-process
     "flash" run."""
-    import multiprocessing
-    import queue
-    import shutil
-    import tempfile
-
     import numpy as np
 
     flash_losses = _flash_train_losses(dev)
-    ctx = multiprocessing.get_context("spawn")
-    store_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_ring_rank, args=(
-        r, os.path.join(store_dir, "store"), str(dev), results))
-        for r in range(RING_SP)]
     t0 = time.monotonic()
-    for p in procs:
-        p.start()
-    ranks, errors = {}, []
-    try:
-        for _ in range(RING_SP):
-            try:
-                rank, ok, value = results.get(timeout=RING_TIMEOUT_S)
-            except queue.Empty:
-                errors.append(f"no result in {RING_TIMEOUT_S} s")
-                break
-            if ok:
-                ranks[rank] = value
-            else:
-                errors.append(f"rank {rank}:\n{value}")
-                break
-    finally:
-        for p in procs:
-            p.join(timeout=30 if not errors else 1)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
-        shutil.rmtree(store_dir, ignore_errors=True)
-    _check(not errors, "ring phase: a rank failed:\n" + "\n".join(errors))
+    ranks = _run_ranks(dev, "ring", dict(sp=RING_SP), _ring_rank)
     out = dict(label=RING_LABEL, ranks=RING_SP, wall_s=time.monotonic() - t0)
 
     b, h, kvh, s, hd = RING_ATTN
@@ -1454,6 +1496,219 @@ def phase_ring(dev):
                 k4=2 * layers * hops * RING_TRAIN_STEPS)
     _check(launches == want, f"ring train launches {launches} in "
            f"{RING_TRAIN_STEPS} steps, want {want}")
+    return out
+
+
+SHARD_MESH = dict(fsdp=2, tp=2)
+SHARD_LABEL = "4 ranks time-sliced on one card, gloo through host"
+SHARD_STEPS = 2            # timed, after one warm-up step
+TOL_SHARD_LOSS = 1e-2      # absolute, each step against one device
+TOL_SHARD_PARAM = 1e-2     # ||err|| / ||ref|| of each leaf after step one
+# ||err|| / ||ref|| of each leaf's step-one gradient: AdamW's first update
+# is about sign(g), blind to a gradient scaled by a constant; a gradient
+# counted twice (over tp, or over fsdp once too many) gives 1
+TOL_SHARD_GRAD = 5e-2
+TOL_SHARD_BYTES = 1e-2     # a rank's parameters + moments vs a quarter
+
+
+def _shard_reference(dev, path):
+    """The single-device run the shard phase is held to: "flash" on the
+    same seed, batch, lr and remat, 1 + SHARD_STEPS steps; the first step's
+    gradients and the parameters after it saved to ``path`` (nested host
+    copies). Returns the losses."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.parallel.mesh import tree_map
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _train_tokens(data_dev)
+    losses = []
+    for step in range(1 + SHARD_STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+        if step == 0:
+            torch.save(dict(
+                params=tree_map(lambda t: t.detach().cpu(), state[0]),
+                grads=tree_map(lambda t: t.grad.cpu(), state[0])), path)
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _shard_rank(dev, mesh, ref_path):
+    """One rank of the fsdp 2 x tp 2 mesh: the flagship's train step on
+    this rank's shards, one warm-up step (after which its gathered
+    gradients and the gathered parameters are held to ``ref_path``'s on
+    rank 0) and SHARD_STEPS timed steps with the launches counted from zero
+    and the shapes of the attention calls recorded."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import (LlamaConfig, gather_state,
+                                            make_train_step, param_specs)
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import gather_full, tree_leaves, tree_map
+
+    shapes = set()
+
+    def recording(launch):
+        def wrapped(q, k, *args):
+            shapes.add((tuple(q.shape), tuple(k.shape)))
+            return launch(q, k, *args)
+        return wrapped
+
+    # the kernels' launchers (K1; K2 and K3), as _FlashAttn calls them
+    fa._flash_fwd_cuda = recording(fa._flash_fwd_cuda)
+    fa._flash_bwd_cuda = recording(fa._flash_bwd_cuda)
+    # host seconds, calls and bytes sent (each call's input) in the gloo
+    # collectives, on tensors already staged to the host; waiting for a
+    # slower peer included
+    comm = dict(s=0.0, calls=0, bytes=0)
+
+    def timed(collective, arg):
+        def wrapped(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return collective(*args, **kwargs)
+            finally:
+                comm["s"] += time.monotonic() - t0
+                comm["calls"] += 1
+                comm["bytes"] += args[arg].numel() * args[arg].element_size()
+        return wrapped
+
+    for name, arg in (("all_reduce", 0), ("all_gather", 1),
+                      ("all_to_all_single", 1)):
+        setattr(dist, name, timed(getattr(dist, name), arg))
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _train_tokens(data_dev)
+    state, loss = train_step(state, tokens)  # warm-up
+    losses = [float(loss)]
+    params, opt = state
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params)) + sum(
+        v.numel() * v.element_size() for moments in opt.state.values()
+        for v in moments.values() if torch.is_tensor(v) and v.dim())
+    # every rank takes part in both gathers
+    full = gather_state(cfg, state, mesh)
+    grads = tree_map(lambda t, spec: gather_full(t.grad, spec, mesh),
+                     params, param_specs(cfg))
+    leaf_errors = grad_errors = None
+    if dist.get_rank() == 0:
+        ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                         weights_only=True)
+
+        def rel_err(got, want):
+            want = want.to(got.device)
+            return ((got - want).norm() / want.norm()).item()
+
+        leaf_errors = tree_map(rel_err, full, ref["params"])
+        grad_errors = tree_map(rel_err, grads, ref["grads"])
+    del full, grads
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _zero_launches(fa)
+    shapes.clear()
+    comm.update(s=0.0, calls=0, bytes=0)
+    t = time.monotonic()
+    for _ in range(SHARD_STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return dict(losses=losses, launches=_read_launches(fa),
+                shapes=sorted(shapes),
+                step_s=(time.monotonic() - t) / SHARD_STEPS,
+                collectives_per_step={k: v / SHARD_STEPS
+                                      for k, v in comm.items()},
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                state_bytes=state_bytes, leaf_errors=leaf_errors,
+                grad_errors=grad_errors)
+
+
+def phase_shard(dev):
+    """Sharded training on fsdp 2 x tp 2 (``SHARD_LABEL``): the flagship at
+    full width and depth with "flash" and remat "dots" on b8 x 2048, each
+    rank on its quarter of the parameters and moments, K1-K3 on its 4 of
+    the 8 heads and 4 of the 8 rows; held to a single-device "flash" run
+    from the same seed on the same batch."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import tree_leaves
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_ref_")
+    try:
+        ref_path = os.path.join(tmp, "step1.pt")
+        ref_losses = _shard_reference(dev, ref_path)
+        t0 = time.monotonic()
+        per = _run_ranks(dev, "shard", SHARD_MESH, _shard_rank, ref_path)
+        wall_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    world = math.prod(SHARD_MESH.values())
+    rows = TRAIN_BATCH // SHARD_MESH["fsdp"]
+    tp = SHARD_MESH["tp"]
+    hd = cfg.head_dim
+    want_shape = [((rows, cfg.n_heads // tp, TRAIN_SEQ, hd),
+                   (rows, cfg.n_kv_heads // tp, TRAIN_SEQ, hd))]
+    want_launches = dict(k1=2 * cfg.n_layers * SHARD_STEPS,
+                         k2=cfg.n_layers * SHARD_STEPS,
+                         k3=cfg.n_layers * SHARD_STEPS, k4=0)
+    quarter = 3 * 4 * cfg.num_params() / world  # fp32 parameter + 2 moments
+    losses = per[0]["losses"]
+    leaf_errors = per[0]["leaf_errors"]
+    grad_errors = per[0]["grad_errors"]
+    out = dict(
+        config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+                    loss_chunk=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, mesh=SHARD_MESH),
+        label=SHARD_LABEL, wall_s=wall_s, losses=losses,
+        flash_losses=ref_losses,
+        loss_abs_diff=[abs(a - b) for a, b in zip(losses, ref_losses)],
+        leaf_rel_err=leaf_errors, grad_rel_err=grad_errors,
+        step_s=[p["step_s"] for p in per],
+        collectives_per_step=[p["collectives_per_step"] for p in per],
+        peak_memory_gb=[p["peak_memory_gb"] for p in per],
+        state_bytes=[p["state_bytes"] for p in per],
+        state_frac_of_quarter=[p["state_bytes"] / quarter for p in per],
+        launches_per_rank=[p["launches"] for p in per],
+        launches_per_rank_step={k: v / SHARD_STEPS
+                                for k, v in per[0]["launches"].items()},
+        shapes=[p["shapes"] for p in per])
+    print(json.dumps({"shard": out}), flush=True)
+    print(f"shard train step: {max(out['step_s']):.3f} s, peak memory a "
+          f"rank {[round(m, 2) for m in out['peak_memory_gb']]} GB "
+          f"({SHARD_LABEL})", flush=True)
+    _check(all(p["losses"] == losses for p in per),
+           f"the ranks disagree on the loss: {[p['losses'] for p in per]}")
+    _check(max(out["loss_abs_diff"]) <= TOL_SHARD_LOSS,
+           f"fsdp x tp losses {losses} vs one device {ref_losses}: beyond "
+           f"{TOL_SHARD_LOSS}")
+    _check(max(tree_leaves(leaf_errors)) <= TOL_SHARD_PARAM,
+           f"gathered parameters after one step beyond ||err||/||ref|| "
+           f"{TOL_SHARD_PARAM}: {leaf_errors}")
+    _check(max(tree_leaves(grad_errors)) <= TOL_SHARD_GRAD,
+           f"gathered step-one gradients beyond ||err||/||ref|| "
+           f"{TOL_SHARD_GRAD}: {grad_errors}")
+    for r, p in enumerate(per):
+        _check(p["launches"] == want_launches,
+               f"rank {r} launched {p['launches']} in {SHARD_STEPS} steps, "
+               f"want {want_launches}")
+        _check([tuple(map(tuple, x)) for x in p["shapes"]] == want_shape,
+               f"rank {r} ran attention at {p['shapes']}, want {want_shape}")
+        _check(abs(p["state_bytes"] / quarter - 1) <= TOL_SHARD_BYTES,
+               f"rank {r} holds {p['state_bytes']} bytes of parameters and "
+               f"moments, a quarter is {quarter}")
     return out
 
 
@@ -1536,7 +1791,7 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring")
+          "ring", "shard")
 
 
 def main(argv=None) -> int:
@@ -1594,6 +1849,9 @@ def main(argv=None) -> int:
     if "ring" in phases:
         torch.cuda.empty_cache()
         report["ring"] = phase_ring(dev)
+    if "shard" in phases:
+        torch.cuda.empty_cache()
+        report["shard"] = phase_shard(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

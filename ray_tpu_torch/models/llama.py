@@ -21,15 +21,21 @@ to the whole sequence; "flash" all-gathers q, k and v, runs the kernels
 on the whole sequence (GSPMD cannot split a custom call) and keeps the
 rank's rows of the output.
 
-On a mesh (``parallel/mesh.py``: one process a position) the weights are
-replicated: the batch is sharded over dp and the sequence over sp, and
-each rank computes its own (b/dp, s/sp) block. fsdp, tp and pp shard the
-weights in the JAX package; the port raises ``NotImplementedError`` on
-them (the sharded-training slice).
+On a mesh (``parallel/mesh.py``: one process a position) the batch is
+sharded over dp x fsdp and the sequence over sp, and each rank computes its
+own (b/(dp·fsdp), s/sp) block; tp ranks take the same block. Each rank
+holds only its blocks of the weights, as ``param_specs`` (the JAX
+package's table) places them: fsdp splits each weight's "other" dim and
+is gathered at use (``_use``, ZeRO-3), and tp splits the heads and the
+FFN columns, Megatron style: wq/wk/wv and w1/w3 column parallel (a rank's
+contiguous heads, so GQA's head map holds locally), wo and w2 row
+parallel, ``copy_to`` in front of each column-parallel product and
+``reduce_from`` after each row-parallel one. The attention kernels run on
+the rank's own heads. pp (a pipeline schedule) is not ported and raises.
 
-``make_train_step`` is the training step: AdamW as optax's, the chunked
-loss, the remat modes as ``torch.utils.checkpoint``, and on a dp x sp mesh
-one all-reduce of the gradients a step.
+``make_train_step`` is the training step: AdamW as optax's, on each rank's
+shards, the chunked loss, the remat modes as ``torch.utils.checkpoint``,
+and on a mesh one all-reduce of a flat gradient buffer per group a step.
 """
 
 from __future__ import annotations
@@ -46,8 +52,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.parallel.mesh import (all_gather, axis_index, mesh_shape,
-                                        stage, to_wire)
+from ray_tpu_torch.parallel.mesh import (P, all_gather, axes_group,
+                                        axis_index, copy_to, data_spec,
+                                        gather_from, gather_full, mesh_shape,
+                                        reduce_from, shard_of,
+                                        shard_train_state, stage, to_wire,
+                                        tree_leaves, tree_map)
 
 
 @dataclass(frozen=True)
@@ -106,8 +116,36 @@ class LlamaConfig:
 
 
 # ---------------------------------------------------------------------------
-# parameter init
+# parameter init + sharding specs
 # ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The JAX package's ``param_specs``, key for key: the spec (``P``) of
+    each weight. The leading axis of layer weights is the layer axis,
+    never sharded; tp splits the 'parallel' dim (Megatron column / row),
+    fsdp the other."""
+    return {
+        "tok_emb": P("fsdp", "tp"),
+        "layers": {
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+            "wq": P(None, "fsdp", "tp"),
+            "wk": P(None, "fsdp", "tp"),
+            "wv": P(None, "fsdp", "tp"),
+            "wo": P(None, "tp", "fsdp"),
+            "w1": P(None, "fsdp", "tp"),
+            "w3": P(None, "fsdp", "tp"),
+            "w2": P(None, "tp", "fsdp"),
+        },
+        "norm": P(None),
+        "lm_head": P("fsdp", "tp"),
+    }
+
+
+# one layer's weight as ``_layer`` gets it: its spec without the layer axis
+_LAYER_SPECS = {name: spec[1:] for name, spec in
+                param_specs(None)["layers"].items()}
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,
@@ -152,6 +190,27 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s slice of the stacked layer weights (views)."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def shard_params(cfg: LlamaConfig, params: Dict[str, Any], mesh,
+                 device=None) -> Dict[str, Any]:
+    """This rank's blocks of the global ``params`` on ``mesh``
+    (``param_specs``), copied to ``device`` (default: each leaf's own):
+    what ``forward``, ``loss_fn`` and the train step take on a mesh. Only
+    the blocks are copied."""
+    def cut(t, spec):
+        block = shard_of(t.detach(), spec, mesh)
+        return block.to(device or t.device, copy=True)
+
+    return tree_map(cut, params, param_specs(cfg))
+
+
+def gather_state(cfg: LlamaConfig, state, mesh) -> Dict[str, Any]:
+    """The global parameters of a sharded (params, optimizer) state, on
+    every rank (new tensors, no gradient): for tests, checks and
+    checkpoints. Every rank calls it together."""
+    return tree_map(lambda t, spec: gather_full(t.detach(), spec, mesh),
+                    state[0], param_specs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +284,7 @@ def _attention_xla(q, k, v, causal: bool = True, q_offset=None):
 
 def attention(cfg: LlamaConfig, q, k, v, mesh=None):
     """q: (b, s, h, hd), k/v (b, s, kvh, hd): on a mesh with sp > 1, this
-    rank's sequence shard."""
+    rank's sequence shard; with tp > 1, this rank's heads."""
     sp = mesh_shape(mesh)["sp"]
     if cfg.attention_impl == "ring" and sp > 1:
         from ray_tpu_torch.parallel.ring_attention import \
@@ -233,9 +292,7 @@ def attention(cfg: LlamaConfig, q, k, v, mesh=None):
 
         return ring_attention_sharded(q, k, v, mesh, causal=True)
     if cfg.attention_impl == "ulysses" and sp > 1:
-        from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
-
-        return ulysses_attention_sharded(q, k, v, mesh, causal=True)
+        return _ulysses(q, k, v, mesh)
     if cfg.attention_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
@@ -247,6 +304,24 @@ def attention(cfg: LlamaConfig, q, k, v, mesh=None):
         return _attention_xla(q, k, v, causal=True,
                               q_offset=axis_index(mesh, "sp") * q.shape[1])
     return _attention_xla(q, k, v, causal=True)
+
+
+def _ulysses(q, k, v, mesh):
+    """Ulysses on a rank's heads (q/k/v: (b, s/sp, heads, hd), the heads
+    this tp rank holds). Where the heads do not divide by sp, it runs as
+    GSPMD runs JAX's Ulysses, whose ``shard_map`` spec keeps the heads
+    whole over tp: the heads gathered over tp, Ulysses on all of them, the
+    rank's heads of the output kept (the gather's backward keeps them
+    too)."""
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    sp = mesh_shape(mesh)["sp"]
+    if q.shape[2] % sp == 0 and k.shape[2] % sp == 0:
+        return ulysses_attention_sharded(q, k, v, mesh, causal=True)
+    h, i = q.shape[2], axis_index(mesh, "tp")
+    q, k, v = (gather_from(t, mesh, "tp", dim=2) for t in (q, k, v))
+    return ulysses_attention_sharded(q, k, v, mesh, causal=True).narrow(
+        2, i * h, h)
 
 
 def _on_whole_sequence(attn, q, k, v, mesh, dim: int):
@@ -262,12 +337,49 @@ def _on_whole_sequence(attn, q, k, v, mesh, dim: int):
     return attn(q, k, v, causal=True).narrow(dim, i * s, s)
 
 
-def _ffn(cfg: LlamaConfig, h, p):
-    dt = cfg.dtype
-    x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    gate = F.silu(x @ p["w1"].to(dt))
-    up = x @ p["w3"].to(dt)
-    return (gate * up) @ p["w2"].to(dt)
+def _use(mesh, w, spec):
+    """A weight at use: ``w`` is this rank's block of a weight stored as
+    ``spec``; its fsdp dim is all-gathered (ZeRO-3: the backward
+    reduce-scatters the gradient over fsdp, whose ranks hold different
+    batch rows) and its tp dim is kept. Nothing to gather when fsdp is 1
+    (JAX's ``_use`` is the identity when fsdp and tp are both 1)."""
+    if mesh_shape(mesh)["fsdp"] == 1:
+        return w
+    return all_gather(w, mesh, "fsdp", dim=spec.index("fsdp"))
+
+
+def _weight(cfg: LlamaConfig, mesh, p, name: str):
+    """Layer weight ``name`` in the compute dtype, gathered for use."""
+    return _use(mesh, p[name].to(cfg.dtype), _LAYER_SPECS[name])
+
+
+def _embed(cfg: LlamaConfig, mesh, tok_emb, tokens):
+    """tokens → (b, s, dim) activations: tok_emb's vocab gathered over
+    fsdp at use, this tp rank's dim columns looked up, the columns
+    gathered over tp (the backward keeps the rank's columns)."""
+    e = _use(mesh, tok_emb.to(cfg.dtype), param_specs(cfg)["tok_emb"])
+    return gather_from(e[tokens], mesh, "tp", dim=-1)
+
+
+def _head(cfg: LlamaConfig, mesh, lm_head):
+    """lm_head at use, in the compute dtype: this rank's vocab columns
+    (column parallel over tp), its dim gathered over fsdp. The loss
+    gathers it once for all its chunks."""
+    return _use(mesh, lm_head.to(cfg.dtype), param_specs(cfg)["lm_head"])
+
+
+def _logits(mesh, h, head):
+    """h (..., dim) → logits (..., vocab) by ``head`` (``_head``): the
+    logits' columns are gathered over tp, so a rank holds its rows' logits
+    whole, the contract of ``forward``."""
+    return gather_from(copy_to(h, mesh, "tp") @ head, mesh, "tp", dim=-1)
+
+
+def _ffn(cfg: LlamaConfig, mesh, h, p):
+    x = copy_to(rms_norm(h, p["ln2"], cfg.norm_eps), mesh, "tp")
+    gate = F.silu(x @ _weight(cfg, mesh, p, "w1"))
+    up = x @ _weight(cfg, mesh, p, "w3")
+    return reduce_from((gate * up) @ _weight(cfg, mesh, p, "w2"), mesh, "tp")
 
 
 def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
@@ -275,66 +387,64 @@ def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
     p = layer_params
     hd = cfg.head_dim
     b, s, _ = h.shape
-    dt = cfg.dtype
+    tp = mesh_shape(mesh)["tp"]
+    # this tp rank's heads: wq's / wk's columns and wo's rows are
+    # head-major, so a contiguous block of them is a block of heads
+    nh, nkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    wq, wk, wv, wo = (_weight(cfg, mesh, p, n) for n in ("wq", "wk", "wv",
+                                                         "wo"))
 
-    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    x = copy_to(rms_norm(h, p["ln1"], cfg.norm_eps), mesh, "tp")
     if cfg.attention_impl == "flash":
         # bhsd hot path: projections emit (b, h, s, hd) directly, the
         # kernel's layout
         from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
 
-        wq = p["wq"].to(dt).reshape(cfg.dim, cfg.n_heads, hd)
-        wk = p["wk"].to(dt).reshape(cfg.dim, cfg.n_kv_heads, hd)
-        wv = p["wv"].to(dt).reshape(cfg.dim, cfg.n_kv_heads, hd)
-        q = torch.einsum("bsd,dhk->bhsk", x, wq)
-        k = torch.einsum("bsd,dhk->bhsk", x, wk)
-        v = torch.einsum("bsd,dhk->bhsk", x, wv)
+        q = torch.einsum("bsd,dhk->bhsk", x, wq.reshape(cfg.dim, nh, hd))
+        k = torch.einsum("bsd,dhk->bhsk", x, wk.reshape(cfg.dim, nkv, hd))
+        v = torch.einsum("bsd,dhk->bhsk", x, wv.reshape(cfg.dim, nkv, hd))
         q = apply_rope_bhsd(q, cos, sin)
         k = apply_rope_bhsd(k, cos, sin)
         o = _on_whole_sequence(flash_attention_bhsd, q.contiguous(),
                                k.contiguous(), v.contiguous(), mesh, dim=2)
-        wo = p["wo"].to(dt).reshape(cfg.n_heads, hd, cfg.dim)
-        attn = torch.einsum("bhsk,hkd->bsd", o, wo)
+        attn = torch.einsum("bhsk,hkd->bsd", o, wo.reshape(nh, hd, cfg.dim))
     else:
-        q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-        k = (x @ p["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (x @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        q = (x @ wq).reshape(b, s, nh, hd)
+        k = (x @ wk).reshape(b, s, nkv, hd)
+        v = (x @ wv).reshape(b, s, nkv, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attention(cfg, q, k, v, mesh)
-        attn = attn.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(dt)
-    h = h + attn
+        attn = attn.reshape(b, s, nh * hd) @ wo
+    h = h + reduce_from(attn, mesh, "tp")
     if remat_ffn:
-        return h + checkpoint(_ffn, cfg, h, p, use_reentrant=False,
+        return h + checkpoint(_ffn, cfg, mesh, h, p, use_reentrant=False,
                               preserve_rng_state=False)
-    return h + _ffn(cfg, h, p)
+    return h + _ffn(cfg, mesh, h, p)
 
 
 def _check_mesh(cfg: LlamaConfig, mesh) -> Dict[str, int]:
-    """The mesh's axis sizes; raises on a mesh the port does not run."""
+    """The mesh's axis sizes; raises on a mesh the port does not run: pp
+    above 1 (a pipeline schedule, not ported) and weights that do not
+    split evenly (JAX pads an uneven shard; the port does not)."""
     shape = mesh_shape(mesh)
-    sharded = {a: shape[a] for a in ("fsdp", "tp", "pp") if shape[a] > 1}
-    if sharded:
+    if shape["pp"] > 1:
         raise NotImplementedError(
-            f"a mesh with {sharded} shards the weights: that needs the "
-            "sharded training slice (FSDP / tensor / pipeline parallel), "
-            "not ported yet; dp and sp are")
+            f"a mesh with pp={shape['pp']} runs a pipeline schedule "
+            "(parallel/pipeline.py), not ported yet; dp, fsdp, tp and sp "
+            "are")
+    tp, fsdp = shape["tp"], shape["fsdp"]
+    uneven = [f"{name}={size} by {axis}={n}" for name, size, axis, n in (
+        ("n_kv_heads", cfg.n_kv_heads, "tp", tp),
+        ("n_heads", cfg.n_heads, "tp", tp),
+        ("ffn_dim", cfg.ffn_dim, "tp", tp), ("dim", cfg.dim, "tp", tp),
+        ("vocab_size", cfg.vocab_size, "tp", tp),
+        ("dim", cfg.dim, "fsdp", fsdp),
+        ("vocab_size", cfg.vocab_size, "fsdp", fsdp)) if size % n]
+    if uneven:
+        raise ValueError("the port splits weights evenly (JAX pads an uneven "
+                         "shard); cannot split " + ", ".join(uneven))
     return shape
-
-
-def _mesh_block(cfg: LlamaConfig, mesh, b: int, s: int):
-    """(rows, positions): the slices of a global (b, s) batch that this
-    rank computes on ``mesh``, the batch over dp and the sequence over
-    sp, as the JAX package's sharding (``P(BATCH_AXES, "sp")``) places
-    them."""
-    shape = _check_mesh(cfg, mesh)
-    dp, sp = shape["dp"], shape["sp"]
-    if b % dp or s % sp:
-        raise ValueError(f"batch {b} and sequence {s} must divide by dp={dp} "
-                         f"and sp={sp}")
-    bi, si = axis_index(mesh, "dp"), axis_index(mesh, "sp")
-    return (slice(bi * b // dp, (bi + 1) * b // dp),
-            slice(si * s // sp, (si + 1) * s // sp))
 
 
 def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -342,25 +452,25 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
             ) -> torch.Tensor:
     """tokens (b, s) int → logits (b, s, vocab) in fp32.
 
-    On a ``mesh`` (dp x sp; every rank calls it together) ``tokens`` is the
-    GLOBAL batch, as JAX's global array, and the result is this rank's
-    block of the logits: (b/dp, s/sp, vocab) at rows [dp_idx·b/dp, ...)
-    and positions [sp_idx·s/sp, ...), RoPE'd at those global positions."""
-    b, s = tokens.shape
+    On a ``mesh`` (every rank calls it together) ``params`` are this rank's
+    blocks (``shard_params``) and ``tokens`` is the GLOBAL batch, as JAX's
+    global array; the result is this rank's block of the logits:
+    (b/(dp·fsdp), s/sp, vocab) at rows [(dp_idx·fsdp + fsdp_idx)·b/(dp·fsdp),
+    ...) and positions [sp_idx·s/sp, ...), RoPE'd at those global
+    positions, every vocab column on every tp rank."""
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
     if mesh is not None:
-        rows, cols = _mesh_block(cfg, mesh, b, s)
-        tokens = tokens[rows, cols]
-        positions = (positions[rows] if positions.dim() == 2
-                     else positions)[..., cols]
-    dt = cfg.dtype
-    h = params["tok_emb"].to(dt)[tokens]
+        _check_mesh(cfg, mesh)
+        tokens = shard_of(tokens, data_spec(), mesh)
+        positions = shard_of(positions, data_spec() if positions.dim() == 2
+                             else P("sp"), mesh)
+    h = _embed(cfg, mesh, params["tok_emb"], tokens)
     cos, sin = rope_tables(cfg, positions)
     for i in range(cfg.n_layers):
         h = _layer(cfg, mesh, h, layer_params(params, i), cos, sin)
     h = rms_norm(h, params["norm"], cfg.norm_eps)
-    return (h @ params["lm_head"].to(dt)).float()
+    return _logits(mesh, h, _head(cfg, mesh, params["lm_head"])).float()
 
 
 def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
@@ -369,10 +479,11 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
 
     On a ``mesh`` (every rank calls it together) ``tokens`` is the global
     batch and ``forward`` gives this rank's block: its NLL against the same
-    block of the targets is summed over the ranks and divided by the global
-    b (s - 1), so every rank returns the global loss. Its gradient reaches
-    this rank's block alone: summed over the ranks, as ``make_train_step``
-    sums gradients, it is the global loss's. The s - 1 inputs are padded at
+    block of the targets is summed over the data axes (dp, fsdp, sp; tp
+    ranks hold the same block) and divided by the global b (s - 1), so
+    every rank returns the global loss. Its gradient reaches this rank's
+    block alone: summed over the data axes, as ``make_train_step`` sums
+    gradients, it is the global loss's. The s - 1 inputs are padded at
     the end to a multiple of sp (JAX's sharding takes uneven blocks; the
     port's are equal): causal attention keeps the padding from every real
     position, and its targets are masked out."""
@@ -382,8 +493,7 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
         pad = -inputs.shape[1] % mesh_shape(mesh)["sp"]
         inputs = F.pad(inputs, (0, pad))
         targets = F.pad(targets, (0, pad), value=-1)
-        rows, cols = _mesh_block(cfg, mesh, *targets.shape)
-        targets = targets[rows, cols]
+        targets = shard_of(targets, data_spec(), mesh)
     logits = forward(cfg, params, inputs, mesh)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.clamp(min=0)[..., None].long()
@@ -392,7 +502,7 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
         return nll.mean()
     local = torch.where(targets >= 0, nll, 0.0).sum()
     total = local.detach().clone()
-    _all_reduce_sum([total])
+    _all_reduce_sum([total], mesh, DATA_AXES)
     return (local + (total - local.detach())) / count
 
 
@@ -423,7 +533,9 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     products (``x @ W`` lowers to ``mm``; the bhsd branch's einsum
     projections to a ``bmm`` over a batch of one), and recompute the rest:
     the batched attention products, the flash kernels and every
-    elementwise op."""
+    elementwise op. A collective's output (a weight gathered over fsdp, an
+    activation summed over tp) is no product: the collective runs again
+    in the recompute, as under ``jax.checkpoint``."""
     if op is torch.ops.aten.mm.default or (
             op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE
@@ -446,8 +558,8 @@ def _remat_layer(cfg: LlamaConfig, mesh, remat):
     return layer
 
 
-def _backbone(cfg: LlamaConfig, params, tokens, positions, layer):
-    h = params["tok_emb"].to(cfg.dtype)[tokens]
+def _backbone(cfg: LlamaConfig, mesh, params, tokens, positions, layer):
+    h = _embed(cfg, mesh, params["tok_emb"], tokens)
     cos, sin = rope_tables(cfg, positions)
     # one unbind per stacked weight: its backward stacks the layers'
     # gradients once, where indexing would make a full-size zero tensor for
@@ -458,9 +570,9 @@ def _backbone(cfg: LlamaConfig, params, tokens, positions, layer):
     return rms_norm(h, params["norm"], cfg.norm_eps)
 
 
-def _chunk_nll(cfg: LlamaConfig, lm_head, h_c, tgt_c, mask_c):
+def _chunk_nll(mesh, head, h_c, tgt_c, mask_c):
     """Masked NLL sum over one sequence chunk. tgt -1 = no target."""
-    logits = (h_c @ lm_head.to(cfg.dtype)).float()
+    logits = _logits(mesh, h_c, head).float()
     logp = torch.log_softmax(logits, dim=-1)
     tgt = tgt_c.clamp_min(0).long()
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
@@ -490,43 +602,46 @@ def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
     denom = (targets >= 0).float().sum()
     positions = torch.arange(s, device=tokens.device)
     if mesh is not None:
-        rows, cols = _mesh_block(cfg, mesh, b, s)
-        tokens, targets = tokens[rows, cols], targets[rows, cols]
-        positions = positions[cols]
+        _check_mesh(cfg, mesh)
+        tokens, targets = (shard_of(t, data_spec(), mesh)
+                           for t in (tokens, targets))
+        positions = shard_of(positions, P("sp"), mesh)
         s = tokens.shape[1]
-    h = _backbone(cfg, params, tokens, positions,
+    h = _backbone(cfg, mesh, params, tokens, positions,
                   _remat_layer(cfg, mesh, remat))
     mask = (targets >= 0).float()
+    head = _head(cfg, mesh, params["lm_head"])
     chunk = loss_chunk
     if chunk and s % chunk == 0 and s > chunk:
         total = 0.0
         for c0 in range(0, s, chunk):
             cut = slice(c0, c0 + chunk)
             total = total + checkpoint(
-                _chunk_nll, cfg, params["lm_head"], h[:, cut], targets[:, cut],
-                mask[:, cut], use_reentrant=False, preserve_rng_state=False)
+                _chunk_nll, mesh, head, h[:, cut],
+                targets[:, cut], mask[:, cut], use_reentrant=False,
+                preserve_rng_state=False)
         return total / denom
-    return _chunk_nll(cfg, params["lm_head"], h, targets, mask) / denom
+    return _chunk_nll(mesh, head, h, targets, mask) / denom
 
 
-def _leaves(params) -> list:
-    if isinstance(params, dict):
-        return [t for v in params.values() for t in _leaves(v)]
-    return [params]
+# the axes whose ranks hold different data: the loss, and every gradient
+# the model's collectives have not summed already, are summed over them
+DATA_AXES = ("dp", "fsdp", "sp")
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _all_reduce_sum(tensors):
-    """Sum each tensor over every rank of the default group, in place, as
-    one flat fp32 buffer (one collective; through host memory on gloo)."""
+def _all_reduce_sum(tensors, mesh, axes):
+    """Sum each tensor over the ranks that differ from this one on
+    ``axes`` (those of size 1 dropped), in place, as one flat fp32 buffer
+    (one collective; through host memory on gloo). Nothing to do when the
+    axes are all of size 1."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in axes if shape[a] > 1)
+    if not axes or not tensors:
+        return
+    group = axes_group(mesh, axes)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    wire = to_wire(flat, stage(None))
-    dist.all_reduce(wire)
+    wire = to_wire(flat, stage(group))
+    dist.all_reduce(wire, group=group)
     flat = wire.to(flat.device)
     offset = 0
     for t in tensors:
@@ -539,59 +654,88 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
     """Build (init_state, shard_state, train_step, data_device).
 
     The JAX package's ``make_train_step`` on one device (``mesh`` None or
-    of one device) or on a ``DeviceMesh`` with dp and sp axes
-    (``MeshSpec(dp=.., sp=..).build()``, one process a position; every rank
-    calls each function together). A mesh with fsdp, tp or pp above 1 (the
-    sharded-training path) raises ``NotImplementedError``. ``device``
-    defaults to CUDA. State = (params, optimizer): AdamW as
-    ``optax.adamw(learning_rate)``, the parameters replicated on every rank
-    (from the same seed or the same parameter dict). ``remat`` selects the
+    of one device) or on a ``DeviceMesh`` with dp, fsdp, tp and sp axes
+    (``MeshSpec(...).build()``, one process a position; every rank calls
+    each function together). pp above 1 raises ``NotImplementedError``,
+    weights that do not split evenly ``ValueError``. ``device`` defaults
+    to CUDA. State = (params, optimizer): this rank's blocks of the
+    parameters (``param_specs``) and AdamW as ``optax.adamw(learning_rate)``
+    on them, so the moments are sharded as their parameters are
+    (``gather_state`` gives the global parameters). ``remat`` selects the
     memory / FLOPs trade per layer, each a ``torch.utils.checkpoint``
     (non-reentrant):
       False  — save all layer activations
       "ffn"  — recompute only the FFN block
       "dots" — save the weight products, recompute the rest (JAX's
-               ``dots_with_no_batch_dims_saveable``); a ring layer's
-               forward, and its transfers, run again in the recompute
+               ``dots_with_no_batch_dims_saveable``); a layer's forward
+               collectives (fsdp gathers, tp all-reduces, ring transfers)
+               run again in the recompute, as under ``jax.checkpoint``
       True   — recompute the whole layer
     """
-    ranks = math.prod(_check_mesh(cfg, mesh).values())
+    shape = _check_mesh(cfg, mesh)
     dev = resolve_device(device)
+    specs = param_specs(cfg)
+    sharded = shape["fsdp"] > 1 or shape["tp"] > 1
 
     def init_state(seed_or_params=0):
         """(params, optimizer) from a seed (``init_params``) or from a
-        parameter dict (e.g. ``params_from_jax``), copied onto the device."""
+        global parameter dict (e.g. ``params_from_jax``): this rank's
+        blocks copied onto the device. From a seed every rank first draws
+        the global parameters on the device, the same on every rank; at
+        Llama-3-8B's size that transient whole copy (32 GB in fp32) is
+        more than a sharded run means to hold, and drawing each block
+        alone is left to a later change."""
         if isinstance(seed_or_params, dict):
-            params = _map(lambda t: t.detach().to(dev, copy=True),
-                          seed_or_params)
+            params = shard_params(cfg, seed_or_params, mesh, dev)
         else:
             params = init_params(cfg, seed_or_params, device=dev)
-        leaves = _leaves(params)
+            if sharded:
+                params = shard_params(cfg, params, mesh)
+        leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         return params, adamw(leaves, learning_rate)
 
     def shard_state(state):
-        """Place a (params, optimizer) state: on one device it already is."""
-        return state
+        """Place a (params, optimizer) state on the mesh as JAX's
+        ``shard_state`` does: a state of global parameters (and their
+        moments) is cut to this rank's blocks in place
+        (``parallel.mesh.shard_train_state``); one from ``init_state``
+        already is."""
+        params, opt = state
+        # tok_emb is split on both dims whenever fsdp or tp is: a leaf of
+        # its global shape means a global state
+        if sharded and params["tok_emb"].shape == (cfg.vocab_size, cfg.dim):
+            shard_train_state(params, opt, specs, mesh)
+        return params, opt
 
     def train_step(state, tokens):
         """One AdamW step on ``tokens`` (b, s) on the device: on a mesh the
         GLOBAL batch, of which each rank computes its block. Parameters
         and moments are updated in place, the port's stand-in for JAX's
         donated state: the step keeps no second copy. On a mesh the
-        gradients and the loss are summed over the ranks before the
-        update. Returns (state, loss), the loss a 0-dim tensor (the global
-        one) that is not synchronised."""
+        gradients and the loss are summed over the data axes before the
+        update, one flat buffer a group. Returns (state, loss), the loss a
+        0-dim tensor (the global one) that is not synchronised."""
         params, opt = state
         opt.zero_grad(set_to_none=True)
         loss = compute_loss(cfg, params, tokens, remat, loss_chunk, mesh)
         loss.backward()
         loss = loss.detach()
-        if ranks > 1:
-            _all_reduce_sum([t.grad for t in _leaves(params)] + [loss])
+        if mesh is not None:
+            # every gradient is summed over dp and sp; over fsdp too where
+            # the fsdp gather at use has not reduce-scattered it (ln1, ln2,
+            # norm); never over tp, on which the Megatron collectives leave
+            # each rank's gradient whole
+            by_axes = {DATA_AXES: [loss]}
+            for leaf, spec in tree_leaves(
+                    tree_map(lambda t, spec: (t, spec), params, specs)):
+                axes = (("dp", "sp") if "fsdp" in spec and shape["fsdp"] > 1
+                        else DATA_AXES)
+                by_axes.setdefault(axes, []).append(leaf.grad)
+            for axes, tensors in by_axes.items():
+                _all_reduce_sum(tensors, mesh, axes)
         opt.step()
         return state, loss
 
     return init_state, shard_state, train_step, dev
-

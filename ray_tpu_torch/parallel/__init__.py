@@ -1,2 +1,3 @@
-"""Sequence parallelism for the PyTorch port: the mesh (``mesh``), ring
-attention (``ring_attention``) and Ulysses (``ulysses``)."""
+"""Parallelism for the PyTorch port: the mesh, its sharding and its
+collectives (``mesh``), ring attention (``ring_attention``) and Ulysses
+(``ulysses``)."""

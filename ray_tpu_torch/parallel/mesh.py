@@ -1,4 +1,4 @@
-"""Device meshes for the PyTorch port — counterpart of
+"""Device meshes and sharding for the PyTorch port — counterpart of
 ``ray_tpu/parallel/mesh.py``.
 
 A mesh is a ``torch.distributed.DeviceMesh`` with the JAX package's axis
@@ -6,30 +6,44 @@ names, outermost first:
 
     pp    — pipeline parallel
     dp    — data parallel (gradient all-reduce)
-    fsdp  — fully-sharded data parallel
-    tp    — tensor parallel
+    fsdp  — fully-sharded data parallel (ZeRO-3: weights gathered at use)
+    tp    — tensor parallel (Megatron column / row parallel)
     sp    — sequence/context parallel (ring attention / Ulysses)
 
 Each process is one mesh position. The processes start the default process
 group themselves (``torch.distributed.init_process_group`` with an address,
 a world size and a rank: the counterpart of JAX's ``jax.distributed``
 bootstrap), and ``MeshSpec.build`` lays the mesh over that group, one
-sub-group per axis. The port shards the batch over dp and the sequence
-over sp (``models/llama.py``); fsdp / tp / pp sharding of the weights is
-the sharded-training slice, not ported yet.
+sub-group per axis.
+
+Sharding is explicit, in JAX's terms: a spec (``P``, JAX's
+``PartitionSpec``) names, for each dim of a global tensor, the mesh axes it
+is split over, and ``shard_of`` cuts out the block that JAX's
+``NamedSharding`` places on this rank's mesh position (``gather_full`` is
+the inverse). Each rank holds only its
+blocks; the model (``models/llama.py``) moves data between them with the
+collectives below, where GSPMD would insert them:
+
+* ``all_gather`` — tiled all-gather whose backward reduce-scatters: the
+  fsdp gather of a weight at use, and the K/V all-gather of plain
+  attention on a sequence sharded over sp;
+* ``copy_to`` / ``reduce_from`` — Megatron's pair around a column- then
+  row-parallel product: identity forward and all-reduce backward, and the
+  reverse;
+* ``gather_from`` — all-gather of an activation that every rank of the
+  axis needs whole, whose backward keeps this rank's slice: the gradient
+  is already whole on each rank, so summing it would count it once a rank.
 
 A gloo group's transport takes host memory only, so collectives on a gloo
 group stage CUDA tensors through the host (``stage``): that is how several
-ranks share one GPU, where NCCL refuses two ranks on one device.
-
-``all_gather`` is the one collective here with a gradient: the K/V
-all-gather that GSPMD inserts when plain attention meets a sequence sharded
-over sp (``models/llama.py``), whose backward is the matching
-reduce-scatter.
+ranks share one GPU, where NCCL refuses two ranks on one device. On an
+NCCL group the same code runs with no staging; that path is untested until
+a host with several cards.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -40,6 +54,24 @@ AXES = ("pp", "dp", "fsdp", "tp", "sp")
 
 # Batch is sharded over both data axes; sequence over sp.
 BATCH_AXES = ("dp", "fsdp")
+
+
+def P(*dims) -> tuple:
+    """JAX's ``PartitionSpec``, as a plain tuple: for each dim of a global
+    tensor, the mesh axis it is split over, a tuple of axes (split over
+    their product, the first outermost) or None (whole on every rank).
+    Dims past its length are whole."""
+    return dims
+
+
+def data_spec() -> tuple:
+    """(batch, seq) token arrays."""
+    return P(BATCH_AXES, "sp")
+
+
+def activation_spec() -> tuple:
+    """(batch, seq, model) activations."""
+    return P(BATCH_AXES, "sp", None)
 
 
 @dataclass(frozen=True)
@@ -102,6 +134,111 @@ def axis_index(mesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
+def _dim_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one entry of a spec splits its dim over."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec``: the
+    block JAX's ``NamedSharding(mesh, spec)`` puts on the device at this
+    rank's mesh position (a view; raises on a dim the axes do not divide).
+    A dim split over several axes is cut into their product of blocks, the
+    first axis outermost."""
+    shape = mesh_shape(mesh)
+    for dim, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        n = math.prod(shape[a] for a in axes)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
+                             f"split evenly over {axes} ({n} blocks)")
+        block = 0
+        for a in axes:
+            block = block * shape[a] + axis_index(mesh, a)
+        size = t.shape[dim] // n
+        t = t.narrow(dim, block * size, size)
+    return t
+
+
+def gather_full(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor from every rank's block ``t`` under ``spec``, on
+    every rank (``shard_of``'s inverse; no gradient). For tests, checks
+    and checkpoints: the model itself never holds a whole weight."""
+    shape = mesh_shape(mesh)
+    for dim, entry in enumerate(spec):
+        # the innermost axis's blocks are adjacent: gather it first
+        for a in reversed(_dim_axes(entry)):
+            if shape[a] > 1:
+                t = _gather(t, mesh.get_group(a), dim)
+    return t
+
+
+def axes_group(mesh, axes):
+    """The process group of the ranks that differ from this one only on
+    ``axes``: e.g. ("dp", "fsdp", "sp"), the ranks whose data this rank's
+    loss and gradients are summed with. Every rank must call it together
+    the first time for each ``axes`` (it creates one group per combination
+    of the other axes' coordinates, in one order); the groups are kept on
+    the mesh."""
+    groups = mesh.__dict__.setdefault("_axes_groups", {})
+    key = tuple(axes)
+    if key not in groups:
+        names = list(mesh.mesh_dim_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(len(names)) if i not in inner]
+        n = math.prod(mesh.mesh.shape[i] for i in inner)
+        rows = mesh.mesh.permute(*outer, *inner).reshape(-1, n).tolist()
+        me = dist.get_rank()
+        for ranks in rows:
+            group = dist.new_group(ranks)
+            if me in ranks:
+                groups[key] = group
+    return groups[key]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *others)`` over a nested dict of tensors, as a dict of the
+    same nesting; each of ``rest`` is a dict with the same keys (e.g. the
+    specs of ``param_specs``) whose entry at the leaf's key path is passed
+    along, whatever it holds there."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def shard_train_state(params, optimizer, specs, mesh):
+    """Place a (params, optimizer) state of global tensors on ``mesh``, in
+    place — the counterpart of the JAX package's ``shard_train_state``:
+    each parameter keeps its identity and its data becomes this rank's
+    block (``shard_of``, a copy), and each optimizer state tensor of the
+    parameter's shape (AdamW's moments) is cut the same way. The moments
+    are keyed by their parameter, so they follow it with no key-path
+    matching; scalars (the step) stay. Returns (params, optimizer)."""
+    def place(leaf, spec):
+        whole = leaf.shape
+        leaf.grad = None
+        leaf.data = shard_of(leaf.data, spec, mesh).clone()
+        moments = optimizer.state.get(leaf, {})
+        for name, value in moments.items():
+            if torch.is_tensor(value) and value.shape == whole:
+                moments[name] = shard_of(value, spec, mesh).clone()
+
+    tree_map(place, params, specs)
+    return params, optimizer
+
+
 def stage(group) -> bool:
     """Whether collectives on ``group`` must take CUDA tensors through host
     memory: ProcessGroupGloo hands a tensor's raw pointer to its TCP
@@ -116,6 +253,25 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     return t.cpu() if staged else t
 
 
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks ``x`` of every rank of ``group`` concatenated along
+    ``dim`` in rank order."""
+    wire = to_wire(x, stage(group))
+    parts = [torch.empty_like(wire)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, as a new tensor."""
+    wire = to_wire(x, stage(group))
+    if wire is x:  # the collective writes its input
+        wire = x.clone()
+    dist.all_reduce(wire, group=group)
+    return wire.to(x.device)
+
+
 class _AllGather(torch.autograd.Function):
     """The blocks of every rank of ``group`` concatenated along ``dim`` in
     rank order; the backward reduce-scatters: each rank gets the sum, over
@@ -125,11 +281,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        wire = to_wire(x, stage(group))
-        parts = [torch.empty_like(wire)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, wire, group=group)
-        return torch.cat(parts, dim=dim).to(x.device)
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -143,8 +295,80 @@ class _AllGather(torch.autograd.Function):
         return total.to(g.device), None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over ``group`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """The blocks of every rank of ``group`` concatenated along ``dim``;
+    the backward keeps this rank's block of the gradient and sums
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.n, ctx.dim = dist.get_world_size(group), dim
+        ctx.index = dist.get_rank(group)
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.index], None, None
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """``x`` of every rank on the mesh's ``axis``, concatenated along
     ``dim`` in axis order (``lax.all_gather(..., tiled=True)``), with the
     reduce-scatter as its gradient."""
     return _AllGather.apply(x, mesh.get_group(axis), dim)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's "copy to the tensor-parallel region", in front of a
+    column-parallel product: ``x`` (whole on every rank of ``axis``)
+    unchanged; its gradient, of which each rank holds the part from its
+    own columns, summed over ``axis``. Identity on an axis of size 1."""
+    if mesh_shape(mesh)[axis] == 1:
+        return x
+    return _CopyTo.apply(x, mesh.get_group(axis))
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's "reduce from the tensor-parallel region", after a
+    row-parallel product: the partial sums ``x`` summed over ``axis``; the
+    gradient, whole on every rank, passes unchanged. Identity on an axis
+    of size 1."""
+    if mesh_shape(mesh)[axis] == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh.get_group(axis))
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``x`` of every rank on ``axis`` concatenated along ``dim``, for an
+    activation every rank then uses whole (a tp rank's embedding columns
+    or logits columns). Its gradient is whole and equal on every rank, so
+    the backward keeps this rank's block: ``all_gather``'s reduce-scatter
+    would count it once a rank. Identity on an axis of size 1."""
+    if mesh_shape(mesh)[axis] == 1:
+        return x
+    return _GatherFrom.apply(x, mesh.get_group(axis), dim)

@@ -1,5 +1,6 @@
-"""One gloo process group of rank processes for the sequence-parallel parity
-tests (``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``).
+"""One gloo process group of rank processes for the multi-rank parity tests
+(``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
+``test_torch_model_parallel.py``).
 
 ``_port_side`` (in the child that ``_port_proc.spawn`` starts) creates a
 ``Ranks`` once per test module; its processes join one gloo group through
@@ -126,14 +127,25 @@ def ready():
     return True
 
 
-def _mesh(dp, sp):
-    """The (dp, sp) mesh over the whole group, built once (building one
-    creates process groups: every rank builds them in the same order)."""
+def _mesh(dp, sp, fsdp=1, tp=1):
+    """The (dp, fsdp, tp, sp) mesh over the whole group, built once
+    (building one creates process groups: every rank builds them in the
+    same order)."""
     from ray_tpu_torch.parallel.mesh import MeshSpec
 
-    if (dp, sp) not in _MESHES:
-        _MESHES[(dp, sp)] = MeshSpec(dp=dp, sp=sp).build()
-    return _MESHES[(dp, sp)]
+    key = (dp, fsdp, tp, sp)
+    if key not in _MESHES:
+        _MESHES[key] = MeshSpec(dp=dp, fsdp=fsdp, tp=tp, sp=sp).build()
+    return _MESHES[key]
+
+
+def _cfg(shape, impl):
+    import torch
+
+    from ray_tpu_torch.models import llama as tl
+
+    return tl.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
+                          attention_impl=impl, **shape)
 
 
 def _np(x):
@@ -183,61 +195,133 @@ def sharded_attention(impl, sp, q, k, v, g, causal=True):
     return tuple(_np(t) for t in (out, qs.grad, ks.grad, vs.grad))
 
 
-def forward(shape, tree, tokens, impl, dp, sp):
-    """This rank's logits block of ``forward`` on the (dp, sp) mesh, and
-    its (row, column) offsets in the global logits."""
+def forward(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1):
+    """This rank's logits block of ``forward`` on the (dp, fsdp, tp, sp)
+    mesh from its blocks of the carried weights, and the block's (row,
+    column) offsets in the global logits."""
     import torch
 
     from ray_tpu_torch.models import llama as tl
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.parallel.mesh import axis_index
 
-    mesh = _mesh(dp, sp)
-    cfg = tl.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
-                         attention_impl=impl, **shape)
+    mesh = _mesh(dp, sp, fsdp, tp)
+    cfg = _cfg(shape, impl)
+    params = tl.shard_params(cfg, params_from_jax(tree, "cpu"), mesh)
     with torch.no_grad():
-        logits = tl.forward(cfg, params_from_jax(tree, "cpu"),
-                            torch.from_numpy(tokens), mesh)
+        logits = tl.forward(cfg, params, torch.from_numpy(tokens), mesh)
     b, s = tokens.shape
-    return (_np(logits), axis_index(mesh, "dp") * b // dp,
+    row = axis_index(mesh, "dp") * fsdp + axis_index(mesh, "fsdp")
+    return (_np(logits), row * b // (dp * fsdp),
             axis_index(mesh, "sp") * s // sp)
 
 
-def loss(shape, tree, tokens, impl, dp, sp):
-    """``loss_fn`` on the (dp, sp) mesh (no mesh when dp is None)."""
+def loss(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1):
+    """``loss_fn`` on the (dp, fsdp, tp, sp) mesh (no mesh when dp is
+    None)."""
     import torch
 
     from ray_tpu_torch.models import llama as tl
     from ray_tpu_torch.models.convert import params_from_jax
 
-    cfg = tl.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
-                         attention_impl=impl, **shape)
-    mesh = None if dp is None else _mesh(dp, sp)
+    cfg = _cfg(shape, impl)
+    mesh = None if dp is None else _mesh(dp, sp, fsdp, tp)
+    params = params_from_jax(tree, "cpu")
+    if mesh is not None:
+        params = tl.shard_params(cfg, params, mesh)
     with torch.no_grad():
-        return float(tl.loss_fn(cfg, params_from_jax(tree, "cpu"),
-                                torch.from_numpy(tokens), mesh))
+        return float(tl.loss_fn(cfg, params, torch.from_numpy(tokens), mesh))
 
 
-def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr, dp, sp):
-    """Losses of ``steps`` steps of ``make_train_step`` on the (dp, sp)
-    mesh from the carried weights; rank 0 also returns the parameters
-    after them (nested numpy)."""
+def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr, dp, sp,
+          fsdp=1, tp=1, with_grads=False):
+    """Losses of ``steps`` steps of ``make_train_step`` on the (dp, fsdp,
+    tp, sp) mesh from the carried weights, and the launch counters; rank 0
+    also returns the global parameters after them and, ``with_grads``, the
+    global gradients of the first step (nested numpy; ``gather_state`` and
+    ``gather_full``, which every rank runs)."""
     import torch
     import torch.distributed as dist
 
     from ray_tpu_torch.models import llama as tl
     from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel.mesh import gather_full, tree_map
 
-    cfg = tl.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
-                         attention_impl=impl, **shape)
+    cfg = _cfg(shape, impl)
+    mesh = _mesh(dp, sp, fsdp, tp)
     init_state, shard_state, train_step, dev = tl.make_train_step(
-        cfg, _mesh(dp, sp), learning_rate=lr, remat=remat,
-        loss_chunk=loss_chunk, device="cpu")
+        cfg, mesh, learning_rate=lr, remat=remat, loss_chunk=loss_chunk,
+        device="cpu")
     state = shard_state(init_state(params_from_jax(tree, "cpu")))
     toks = torch.from_numpy(tokens).to(dev)
-    losses = []
+    losses, grads = [], None
     for _ in range(steps):
         state, loss = train_step(state, toks)
         losses.append(float(loss))
-    params = tl._map(_np, state[0]) if dist.get_rank() == 0 else None
+        if with_grads and grads is None:
+            grads = tree_map(lambda t, spec: _np(gather_full(
+                t.grad, spec, mesh)), state[0], tl.param_specs(cfg))
+    params = tree_map(_np, tl.gather_state(cfg, state, mesh))
+    if dist.get_rank() != 0:
+        params = grads = None
+    if with_grads:
+        return losses, params, launches(), grads
     return losses, params, launches()
+
+
+def shards(arrays, specs, dp, fsdp, tp, sp):
+    """This rank's ``shard_of`` block of each global array under its spec
+    (a tuple per dim), and whether ``gather_full`` of the block gives the
+    array back."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import gather_full, shard_of
+
+    mesh = _mesh(dp, sp, fsdp, tp)
+    out = []
+    for a, spec in zip(arrays, specs):
+        block = shard_of(torch.from_numpy(a), spec, mesh)
+        back = gather_full(block.contiguous(), spec, mesh)
+        out.append((_np(block), bool(np.array_equal(_np(back), a))))
+    return out
+
+
+def shard_global_state(shape, tree, tokens, lr, dp, sp, fsdp, tp):
+    """A global state after one single-device step (parameters and AdamW
+    moments), placed on the (dp, fsdp, tp, sp) mesh by ``shard_state``:
+    whether every parameter and moment is now this rank's ``shard_of``
+    block of the global one, with the step count kept; and the loss of one
+    more step there against the single-device step's."""
+    import torch
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel.mesh import shard_of, tree_leaves, tree_map
+
+    cfg = _cfg(shape, "flash")
+    mesh = _mesh(dp, sp, fsdp, tp)
+    toks = torch.from_numpy(tokens)
+    init_one, _, step_one, _ = tl.make_train_step(
+        cfg, learning_rate=lr, loss_chunk=0, device="cpu")
+    init_mesh, shard_state, step_mesh, _ = tl.make_train_step(
+        cfg, mesh, learning_rate=lr, loss_chunk=0, device="cpu")
+    state, _ = step_one(init_one(params_from_jax(tree, "cpu")), toks)
+    specs = tl.param_specs(cfg)
+
+    def _with_specs(params, specs):
+        return tree_leaves(tree_map(lambda t, spec: (t, spec), params, specs))
+
+    want = [(shard_of(leaf.detach(), spec, mesh).clone(),
+             {k: (shard_of(v, spec, mesh).clone() if v.dim() else v.clone())
+              for k, v in state[1].state[leaf].items()})
+            for leaf, spec in _with_specs(state[0], specs)]
+    placed = shard_state(state)
+    placed_ok = all(
+        torch.equal(leaf, w) and all(torch.equal(
+            placed[1].state[leaf][k], m) for k, m in moments.items())
+        for leaf, (w, moments) in zip(
+            (leaf for leaf, _ in _with_specs(placed[0], specs)), want))
+    _, loss = step_mesh(placed, toks)
+    global_state, _ = step_one(init_one(params_from_jax(tree, "cpu")), toks)
+    _, want_loss = step_one(global_state, toks)
+    return placed_ok, float(loss), float(want_loss)

@@ -28,7 +28,8 @@ from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as tfa
-from ray_tpu_torch.parallel.mesh import AXES, MeshSpec
+from ray_tpu_torch.parallel.mesh import (AXES, MeshSpec, activation_spec,
+                                         data_spec, tree_map)
 from ray_tpu_torch.parallel.ring_attention import _dispatch_hop
 
 _T = torch.from_numpy
@@ -463,7 +464,7 @@ def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr):
     for _ in range(steps):
         state, loss = train_step(state, toks)
         losses.append(float(loss))
-    return losses, tl._map(_np, state[0]), (tfa.flash_fwd_launches,) + \
+    return losses, tree_map(_np, state[0]), (tfa.flash_fwd_launches,) + \
         bwd_launches()
 
 
@@ -492,14 +493,24 @@ class _Mesh:
 
 
 def train_step_mesh(shape, axes, impl="ring"):
-    """The error text ``make_train_step`` raises on a mesh of axis sizes
-    ``axes`` (None if it accepts it)."""
+    """The error ``make_train_step`` raises on a mesh of axis sizes
+    ``axes``, as (type name, text), or None if it accepts the mesh."""
     try:
         tl.make_train_step(_cfg(shape, attention_impl=impl),
                            mesh=_Mesh(axes), device="cpu")
-    except NotImplementedError as e:
-        return str(e)
+    except (NotImplementedError, ValueError) as e:
+        return type(e).__name__, str(e)
     return None
+
+
+def param_specs(shape):
+    """``param_specs``: nested dicts of tuples."""
+    return tl.param_specs(_cfg(shape))
+
+
+def data_specs():
+    """``data_spec()`` and ``activation_spec()``."""
+    return data_spec(), activation_spec()
 
 
 # -- parallel/: one gloo group of rank processes per test module -------------
