@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs ten phases and fails (exit 1) if any check fails:
+runs twelve phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -63,6 +63,25 @@ runs ten phases and fails (exit 1) if any check fails:
             launches a step a rank at the rank's shape (b4 h4 kvh2 s2048
             hd128), the step's seconds and each rank's peak memory. Its
             times measure time-slicing too.
+* vit     — ViT-B/16 (86.5M parameters, 224² images, patch 16, 12 layers,
+            12 heads of 64) at full width and depth: fp32 parameters, bf16
+            compute, "flash", no remat, one seeded batch of 128 NHWC
+            images; one warm-up and 10 timed AdamW steps. Gates: finite,
+            falling loss; K1, K2 and K3 12 a step each, every launch at
+            (128, 12, 12, 196, 64) and unmasked; flash against xla on the
+            loss after 3 steps (1e-2), the step-one head gradients (cosine
+            >= 0.99) and the forward of converted weights with a nonzero
+            head (top-1 agreement). Step ms, images/s, peak memory, one
+            profiled step. ``k1``/``k23`` hold K1-K3 at that shape.
+* moe     — ``moe_ffn`` at Mixtral-8x7B's FFN widths (d_model 4096, d_ff
+            14336, 8 experts, top-2; the JAX package's GELU pair) on 4096
+            bf16 tokens at capacity factor 2 against a per-token reference
+            on the card (1e-2), its dropped slots and its combine weights;
+            then ``moe_ffn_ep`` over tp 4 (four processes on the card over
+            gloo, as in ``shard``) on 1024 tokens at capacity factor 8,
+            its outputs and router / w_in / w_out gradients against the
+            single shard's. ms a call, tokens/s, the exchange's bytes; the
+            plain products run no kernel of the port.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -88,9 +107,12 @@ SEED = 0
 # (b, h, kvh, s, hd): the serving path's prompt buckets and the forward's
 # 2048, at Llama-3-8B's heads; one MHA shape at head_dim 64; the training
 # flagship's shape, and a rank's share of it in the shard phase (half the
-# rows over fsdp, half the heads over tp)
+# rows over fsdp, half the heads over tp); ViT-B/16's at the vit phase's
+# batch (196 patches: every 64-row tile of it a tail tile)
+VIT_SHAPE = (128, 12, 12, 196, 64)
 K1_SHAPES = [(1, 32, 8, s, 128) for s in (64, 200, 256, 512, 2048)] + [
-    (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128), (4, 4, 2, 2048, 128)]
+    (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128), (4, 4, 2, 2048, 128),
+    VIT_SHAPE]
 K1_MAIN_SHAPE = (1, 32, 8, 512, 128)  # the serve phase's largest bucket
 
 
@@ -250,10 +272,11 @@ def phase_k1(dev):
 
 # (b, h, kvh, s, hd) of the K2/K3 check: the training flagship's heads and
 # batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s,
-# one MHA shape at head_dim 64, and a shard-phase rank's share of the
-# flagship (its grid is a quarter of the flagship's)
+# one MHA shape at head_dim 64, a shard-phase rank's share of the flagship
+# (its grid is a quarter of the flagship's) and ViT-B/16's
 K23_SHAPES = [(8, 8, 4, 2048, 128), (1, 32, 8, 2048, 128),
-              (1, 32, 8, 200, 128), (2, 8, 8, 384, 64), (4, 4, 2, 2048, 128)]
+              (1, 32, 8, 200, 128), (2, 8, 8, 384, 64), (4, 4, 2, 2048, 128),
+              VIT_SHAPE]
 K23_MAIN_SHAPE = K23_SHAPES[0]
 # each gradient is accumulated in fp32 and rounded to bf16 once (2^-8
 # relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
@@ -1105,10 +1128,10 @@ def phase_train(dev):
     return out
 
 
-def _train_profile(train_step, state, tokens):
-    """One train step under torch.profiler: host wall time against the
-    device time of its kernels, so the device's idle share, and the top
-    kernels."""
+def _train_profile(train_step, state, *batch):
+    """One train step on ``batch`` under torch.profiler: host wall time
+    against the device time of its kernels, so the device's idle share,
+    and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1116,7 +1139,7 @@ def _train_profile(train_step, state, tokens):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.monotonic()
-        train_step(state, tokens)
+        train_step(state, *batch)
         torch.cuda.synchronize()
         host_ms = (time.monotonic() - t) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1712,6 +1735,368 @@ def phase_shard(dev):
     return out
 
 
+# ViT-B/16 (ViTConfig.base: 86.5M parameters, 224² images, patch 16, 12
+# layers, dim 768, 12 heads of 64, MLP 3072, 1000 classes) at full width and
+# depth: fp32 parameters, bf16 compute, "flash", no remat, one seeded batch
+# of VIT_BATCH NHWC images
+VIT_BATCH, VIT_STEPS, VIT_LR = 128, 10, 1e-3  # the JAX package's lr
+VIT_CMP_STEPS = 3          # flash against xla: the loss after 3 steps
+TOL_VIT_LOSS = 1e-2        # absolute
+
+
+def _vit_batch(dev, cfg):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    images = torch.randn((VIT_BATCH, cfg.image_size, cfg.image_size,
+                          cfg.channels), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen,
+                           device=dev)
+    return images, labels
+
+
+def _vit_losses(dev, impl, steps):
+    """Losses of ``steps`` AdamW steps of ViT-B/16 with ``impl`` from seed
+    SEED on the vit batch."""
+    import torch
+
+    from ray_tpu_torch.models.vit import ViTConfig, make_train_step
+
+    cfg = ViTConfig.base(attention_impl=impl)
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=VIT_LR)
+    state = shard_state(init_state(SEED))
+    images, labels = _vit_batch(data_dev, cfg)
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, images, labels)
+        losses.append(float(loss))
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_vit(dev):
+    """ViT-B/16 trained at full width and depth on one card ("flash": K1
+    forward, K2 and K3 backward, unmasked, at (128, 12, 12, 196, 64)),
+    then held to "xla" on the loss after 3 steps, on the step-one head
+    gradients and on the forward of converted weights with a nonzero
+    head."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.models.vit import (ViTConfig, compute_loss, forward,
+                                          init_params, make_train_step)
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import tree_map
+
+    cfg = ViTConfig.base(attention_impl="flash")
+    xcfg = ViTConfig.base(attention_impl="xla")
+    calls = []
+
+    def recording(launch, kind):
+        def wrapped(q, k, v, *args):
+            calls.append((kind, tuple(q.shape), tuple(k.shape), args[-1]))
+            return launch(q, k, v, *args)
+        return wrapped
+
+    # the kernels' launchers as _FlashAttn calls them: (shapes, causal)
+    fwd_cuda, bwd_cuda = fa._flash_fwd_cuda, fa._flash_bwd_cuda
+    fa._flash_fwd_cuda = recording(fwd_cuda, "k1")
+    fa._flash_bwd_cuda = recording(bwd_cuda, "k23")
+    try:
+        init_state, shard_state, train_step, data_dev = make_train_step(
+            cfg, learning_rate=VIT_LR)
+        state = shard_state(init_state(SEED))
+        images, labels = _vit_batch(data_dev, cfg)
+        state, loss = train_step(state, images, labels)  # warm-up
+        losses = [float(loss)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches(fa)
+        calls.clear()
+        t = time.monotonic()
+        step_losses = []
+        for _ in range(VIT_STEPS):
+            state, loss = train_step(state, images, labels)
+            step_losses.append(loss)
+        torch.cuda.synchronize()
+        dt = (time.monotonic() - t) / VIT_STEPS
+        launches = _read_launches(fa)
+        shapes = sorted(set(calls))
+    finally:
+        fa._flash_fwd_cuda, fa._flash_bwd_cuda = fwd_cuda, bwd_cuda
+    losses += [float(x) for x in step_losses]
+    out = dict(
+        config=dict(image_size=cfg.image_size, patch_size=cfg.patch_size,
+                    dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                    mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
+                    num_params=cfg.num_params(), batch=VIT_BATCH,
+                    attention_impl="flash", remat=False, lr=VIT_LR),
+        losses=losses, step_ms=dt * 1e3, images_per_s=VIT_BATCH / dt,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches,
+        launches_per_step={k: v / VIT_STEPS for k, v in launches.items()},
+        shapes=shapes)
+    out["profile"] = _train_profile(train_step, state, images, labels)
+    del state
+    torch.cuda.empty_cache()
+
+    # flash against xla: the loss after VIT_CMP_STEPS steps from the seed
+    lf = _vit_losses(dev, "flash", VIT_CMP_STEPS)
+    lx = _vit_losses(dev, "xla", VIT_CMP_STEPS)
+    # step one from the seed: its gradient reaches the zero head alone
+    params = init_params(cfg, SEED)
+    for t_ in (params["head"], params["head_bias"]):
+        t_.requires_grad_(True)
+    grads = {}
+    for c in (cfg, xcfg):
+        loss = compute_loss(c, params, images, labels)
+        grads[c.attention_impl] = torch.autograd.grad(
+            loss, [params["head"], params["head_bias"]])
+    cos = {name: torch.nn.functional.cosine_similarity(
+        gf.flatten().double(), gx.flatten().double(), dim=0).item()
+        for name, gf, gx in zip(("head", "head_bias"), grads["flash"],
+                                grads["xla"])}
+    # converted weights (a nested numpy dict, as a JAX checkpoint arrives)
+    # with a seeded nonzero head: the forward phase's top-1 rule
+    tree = tree_map(lambda t_: t_.detach().cpu().numpy(), params)
+    rng = np.random.RandomState(SEED + 9)
+    tree["head"] = (0.02 * rng.randn(cfg.dim, cfg.num_classes)).astype(
+        np.float32)
+    del params, grads
+    conv = params_from_jax(tree, None)
+    with torch.no_grad():
+        _zero_launches(fa)
+        logits_f = forward(cfg, conv, images)
+        fwd_launches = fa.flash_fwd_launches
+        logits_x = forward(xcfg, conv, images)
+    top1 = (logits_f.argmax(-1) == logits_x.argmax(-1)).float().mean().item()
+    dls = (torch.log_softmax(logits_f, -1) - torch.log_softmax(logits_x, -1)
+           ).abs().max().item()
+    finite = bool(torch.isfinite(logits_f).all())
+    out["flash_vs_xla"] = dict(
+        steps=VIT_CMP_STEPS, losses_flash=lf, losses_xla=lx,
+        loss_abs_diff=abs(lf[-1] - lx[-1]), head_grad_cosine=cos,
+        forward_top1_agreement=top1, forward_max_abs_logsoftmax_diff=dls,
+        forward_k1_launches=fwd_launches)
+    del conv, logits_f, logits_x
+    torch.cuda.empty_cache()
+    print(json.dumps({"vit": out}), flush=True)
+    print(f"vit train step: {out['step_ms']:.1f} ms, "
+          f"{out['images_per_s']:.0f} images/s, peak "
+          f"{out['peak_memory_gb']:.2f} GB", flush=True)
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"vit losses not finite and falling: {losses}")
+    n = cfg.n_layers * VIT_STEPS
+    _check(launches == dict(k1=n, k2=n, k3=n, k4=0),
+           f"vit launched {launches} in {VIT_STEPS} steps, want K1, K2 and "
+           f"K3 {cfg.n_layers} a step")
+    b, h, kvh, s, hd = VIT_SHAPE
+    want = [("k1", (b, h, s, hd), (b, kvh, s, hd), False),
+            ("k23", (b, h, s, hd), (b, kvh, s, hd), False)]
+    _check(shapes == want, f"vit ran attention at {shapes}, want {want}")
+    _check(abs(lf[-1] - lx[-1]) <= TOL_VIT_LOSS,
+           f"vit flash vs xla loss after {VIT_CMP_STEPS} steps {lf} vs {lx} "
+           f"beyond {TOL_VIT_LOSS}")
+    _check(min(cos.values()) >= GRAD_COS_MIN,
+           f"vit flash vs xla step-one head gradient cosine below "
+           f"{GRAD_COS_MIN}: {cos}")
+    _check(finite and fwd_launches == cfg.n_layers and top1 >= TOP1_MIN,
+           f"vit forward of converted weights: finite {finite}, K1 "
+           f"{fwd_launches} launches, flash vs xla top-1 {top1} < {TOP1_MIN}")
+    return out
+
+
+# Mixtral-8x7B's FFN widths (mistralai/Mixtral-8x7B-v0.1 config.json:
+# hidden_size 4096, intermediate_size 14336, 8 local experts, 2 a token) with
+# the JAX package's GELU pair for the expert FFN (not SwiGLU); fp32
+# parameters, bf16 tokens
+MOE_D, MOE_FF, MOE_E, MOE_K = 4096, 14336, 8, 2
+MOE_TOKENS, MOE_CF = 4096, 2.0
+MOE_EP = dict(tp=4)
+MOE_EP_TOKENS, MOE_EP_CF = 1024, 8.0   # no slot dropped
+MOE_LABEL = "4 ranks time-sliced on one card, gloo through host"
+TOL_MOE = 1e-2             # ||err|| / ||ref||
+TOL_COMBINE = 1e-5
+
+
+def _moe_reference(params, x, top_k, capacity):
+    """The MoE FFN token by token: each kept (token, choice) slot's gate
+    times its expert's FFN of the token, summed in fp32; a slot is kept
+    while its expert has taken fewer than ``capacity`` slots, first choices
+    in token order before second ones. Returns (y, dropped slots)."""
+    import torch
+    import torch.nn.functional as F
+
+    xf = x.float()
+    probs = torch.softmax(xf @ params["router"].float(), dim=-1)
+    gates, idx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    y = torch.zeros_like(xf)
+    taken = [0] * params["router"].shape[1]
+    dropped = 0
+    for j in range(top_k):
+        for e in range(len(taken)):
+            toks = (idx[:, j] == e).nonzero()[:, 0]
+            keep = toks[:max(0, capacity - taken[e])]
+            taken[e] += len(toks)
+            dropped += len(toks) - len(keep)
+            if len(keep):
+                h = F.gelu(xf[keep] @ params["w_in"][e].float(),
+                           approximate="tanh")
+                y.index_add_(0, keep, gates[keep, j:j + 1]
+                             * (h @ params["w_out"][e].float()))
+    return y, dropped
+
+
+def _moe_ep_rank(dev, mesh, ref_path):
+    """One rank of ``moe_ffn_ep`` over tp 4: its experts' block of the
+    seeded parameters, the whole token batch (tokens_spec P("dp"), dp 1):
+    y, aux and the gradients of mean(y²) against the single shard's in
+    ``ref_path`` (sums of squares, for the parent to combine), and the
+    ms of a forward call."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import shard_of
+    from ray_tpu_torch.parallel.moe import (init_moe_params, moe_ffn_ep,
+                                            moe_param_specs)
+
+    specs = moe_param_specs("tp")
+    full = init_moe_params(SEED, MOE_D, MOE_FF, MOE_E, device=dev)
+    params = {k: shard_of(v, specs[k], mesh).clone().requires_grad_()
+              for k, v in full.items()}
+    del full
+    x = _moe_tokens(dev, MOE_EP_TOKENS)
+    y, aux = moe_ffn_ep(params, x, mesh=mesh, axis="tp", top_k=MOE_K,
+                        capacity_factor=MOE_EP_CF)
+    y.float().square().mean().backward()
+    ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                     weights_only=True)
+    errors = {"y": _errors_against(y, ref["y"].to(dev))}
+    for k in params:
+        errors[k] = _errors_against(params[k].grad, shard_of(
+            ref["grads"][k], specs[k], mesh).to(dev))
+    del ref
+    with torch.no_grad():
+        for _ in range(2):  # warm-up
+            moe_ffn_ep(params, x, mesh=mesh, axis="tp", top_k=MOE_K,
+                       capacity_factor=MOE_EP_CF)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(3):
+            moe_ffn_ep(params, x, mesh=mesh, axis="tp", top_k=MOE_K,
+                       capacity_factor=MOE_EP_CF)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t) * 1e3 / 3
+    return dict(errors=errors, aux=float(aux.detach()), ms=ms,
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def _moe_tokens(dev, n):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    return torch.randn((n, MOE_D), generator=gen, device=dev).bfloat16()
+
+
+def phase_moe(dev):
+    """``moe_ffn`` at Mixtral-8x7B's FFN widths on MOE_TOKENS bf16 tokens
+    against a per-token reference on the card; then ``moe_ffn_ep`` over tp
+    4 (MOE_LABEL) against the single shard's outputs and gradients."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.parallel.moe import (_capacity, _route,
+                                            init_moe_params, moe_ffn)
+
+    params = init_moe_params(SEED, MOE_D, MOE_FF, MOE_E)
+    x = _moe_tokens(dev, MOE_TOKENS)
+    capacity = _capacity(MOE_TOKENS, MOE_E, MOE_CF, MOE_K)
+    with torch.no_grad():
+        y, aux = moe_ffn(params, x, top_k=MOE_K, capacity_factor=MOE_CF)
+        ref, ref_dropped = _moe_reference(params, x, MOE_K, capacity)
+        dispatch, combine, _ = _route(x.float() @ params["router"], MOE_K,
+                                      capacity)
+        slots = dispatch.sum(dim=(1, 2))
+        dropped = int(round(MOE_TOKENS * MOE_K - slots.sum().item()))
+        whole = slots == MOE_K   # tokens that kept every slot
+        combine_err = (combine.sum(dim=(1, 2))[whole] - 1).abs().max().item()
+        del dispatch, combine
+        rel = ((y.float() - ref).norm() / ref.norm()).item()
+        ms = _time_ms(lambda: moe_ffn(params, x, top_k=MOE_K,
+                                      capacity_factor=MOE_CF),
+                      iters=5, warmup=1)
+    out = dict(config=dict(d_model=MOE_D, d_ff=MOE_FF, experts=MOE_E,
+                           top_k=MOE_K, tokens=MOE_TOKENS,
+                           capacity_factor=MOE_CF, capacity=capacity),
+               rel_err=rel, aux=float(aux), dropped_slots=dropped,
+               reference_dropped_slots=ref_dropped,
+               tokens_with_every_slot=int(whole.sum()),
+               combine_sum_max_err=combine_err, ms=ms,
+               tokens_per_s=MOE_TOKENS / (ms * 1e-3))
+    del y, ref
+
+    # the single shard at the ep check's tokens and capacity: y and the
+    # gradients of mean(y²), which the ranks are held to
+    xe = _moe_tokens(dev, MOE_EP_TOKENS)
+    leaves = {k: v.requires_grad_() for k, v in params.items()}
+    ye, _ = moe_ffn(leaves, xe, top_k=MOE_K, capacity_factor=MOE_EP_CF)
+    ye.float().square().mean().backward()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_ref_")
+    try:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(dict(y=ye.detach(), grads={k: v.grad for k, v in
+                                              leaves.items()}), ref_path)
+        del params, leaves, ye, xe
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        per = _run_ranks(dev, "moe", MOE_EP, _moe_ep_rank, ref_path)
+        wall_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ep = MOE_EP["tp"]
+    ep_capacity = _capacity(MOE_EP_TOKENS, MOE_E, MOE_EP_CF, MOE_K)
+    ep_out = dict(label=MOE_LABEL, mesh=MOE_EP, tokens=MOE_EP_TOKENS,
+                  capacity_factor=MOE_EP_CF, capacity=ep_capacity,
+                  wall_s=wall_s, ms_per_call=[p["ms"] for p in per],
+                  tokens_per_s=[MOE_EP_TOKENS / (p["ms"] * 1e-3)
+                                for p in per],
+                  # each all-to-all moves a rank's fp32 [E, C, d] buckets,
+                  # (ep - 1)/ep of them to other ranks; two a call
+                  exchange_bytes_per_rank=4 * MOE_E * ep_capacity * MOE_D,
+                  peak_memory_gb=[p["peak_memory_gb"] for p in per],
+                  aux=[p["aux"] for p in per])
+    ok = True
+    for name in ("y", "router", "w_in", "w_out"):
+        e = [p["errors"][name] for p in per]
+        if name == "router":  # every rank holds the whole router
+            e = e[:1]
+        rel_norm = (sum(x_["sq_err"] for x_ in e)
+                    / sum(x_["sq_ref"] for x_ in e)) ** 0.5
+        ep_out[f"rel_norm_{name}"] = rel_norm
+        ok = ok and rel_norm <= TOL_MOE and all(x_["finite"] for x_ in e)
+    out["ep"] = ep_out
+    print(json.dumps({"moe": out}), flush=True)
+    print(f"moe_ffn at Mixtral-8x7B widths: {ms:.2f} ms a call, "
+          f"{out['tokens_per_s']:.0f} tokens/s; moe_ffn_ep over tp {ep}: "
+          f"{max(ep_out['ms_per_call']):.1f} ms a call ({MOE_LABEL})",
+          flush=True)
+    _check(rel <= TOL_MOE, f"moe_ffn vs the per-token reference: "
+           f"||err||/||ref|| {rel} > {TOL_MOE}")
+    _check(combine_err <= TOL_COMBINE,
+           f"combine weights of tokens that kept every slot sum to 1 +- "
+           f"{combine_err} > {TOL_COMBINE}")
+    _check(dropped == ref_dropped, f"moe_ffn dropped {dropped} slots, the "
+           f"reference {ref_dropped}")
+    _check(ok, f"moe_ffn_ep over tp {ep} vs the single shard beyond "
+           f"||err||/||ref|| {TOL_MOE}: {ep_out}")
+    return out
+
+
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
@@ -1791,7 +2176,7 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring", "shard")
+          "ring", "shard", "vit", "moe")
 
 
 def main(argv=None) -> int:
@@ -1852,6 +2237,12 @@ def main(argv=None) -> int:
     if "shard" in phases:
         torch.cuda.empty_cache()
         report["shard"] = phase_shard(dev)
+    if "vit" in phases:
+        torch.cuda.empty_cache()
+        report["vit"] = phase_vit(dev)
+    if "moe" in phases:
+        torch.cuda.empty_cache()
+        report["moe"] = phase_moe(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -1,1 +1,2 @@
-"""Model zoo of the port (Llama family)."""
+"""Model zoo of the port: the Llama family (``llama``) and the Vision
+Transformer (``vit``)."""

@@ -2,8 +2,9 @@
 
 The caller turns the JAX parameter pytree into nested numpy arrays
 (``jax.tree.map(np.asarray, params)``), so the port never imports JAX.
-Keys, shapes, orientation and values come across unchanged: both packages
-store dense weights as ``(L, in, out)``, so nothing is transposed.
+Keys, shapes, orientation and values come across unchanged, for every
+model family (``llama.py``, ``vit.py``): both packages store dense weights
+as ``(L, in, out)``, so nothing is transposed.
 """
 
 from __future__ import annotations

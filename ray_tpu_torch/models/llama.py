@@ -26,12 +26,16 @@ sharded over dp x fsdp and the sequence over sp, and each rank computes its
 own (b/(dp·fsdp), s/sp) block; tp ranks take the same block. Each rank
 holds only its blocks of the weights, as ``param_specs`` (the JAX
 package's table) places them: fsdp splits each weight's "other" dim and
-is gathered at use (``_use``, ZeRO-3), and tp splits the heads and the
-FFN columns, Megatron style: wq/wk/wv and w1/w3 column parallel (a rank's
-contiguous heads, so GQA's head map holds locally), wo and w2 row
+is gathered at use (``_sharded.use``, ZeRO-3), and tp splits the heads and
+the FFN columns, Megatron style: wq/wk/wv and w1/w3 column parallel (a
+rank's contiguous heads, so GQA's head map holds locally), wo and w2 row
 parallel, ``copy_to`` in front of each column-parallel product and
 ``reduce_from`` after each row-parallel one. The attention kernels run on
-the rank's own heads. pp (a pipeline schedule) is not ported and raises.
+the rank's own heads. An axis need not divide what it splits: the blocks
+are then GSPMD's (``parallel/mesh.py::block_range``), the gathers cut the
+padding off, and where tp does not split the heads every tp rank runs
+attention on all of them (``_sharded.heads_split``). pp (a pipeline
+schedule) is not ported and raises.
 
 ``make_train_step`` is the training step: AdamW as optax's, on each rank's
 shards, the chunked loss, the remat modes as ``torch.utils.checkpoint``,
@@ -46,18 +50,20 @@ from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.parallel.mesh import (P, all_gather, axes_group,
+from ray_tpu_torch.models._sharded import (adamw, check_mesh, gather_heads,
+                                          heads_split, own_columns,
+                                          sum_gradients, use)
+from ray_tpu_torch.parallel.mesh import (P, all_gather, all_reduce_sum,
                                         axis_index, copy_to, data_spec,
                                         gather_from, gather_full, mesh_shape,
                                         reduce_from, shard_of,
-                                        shard_train_state, stage, to_wire,
-                                        tree_leaves, tree_map)
+                                        shard_train_state, tree_leaves,
+                                        tree_map)
 
 
 @dataclass(frozen=True)
@@ -284,7 +290,8 @@ def _attention_xla(q, k, v, causal: bool = True, q_offset=None):
 
 def attention(cfg: LlamaConfig, q, k, v, mesh=None):
     """q: (b, s, h, hd), k/v (b, s, kvh, hd): on a mesh with sp > 1, this
-    rank's sequence shard; with tp > 1, this rank's heads."""
+    rank's sequence shard; with tp > 1, this rank's heads, or every head
+    where tp does not split them."""
     sp = mesh_shape(mesh)["sp"]
     if cfg.attention_impl == "ring" and sp > 1:
         from ray_tpu_torch.parallel.ring_attention import \
@@ -292,7 +299,7 @@ def attention(cfg: LlamaConfig, q, k, v, mesh=None):
 
         return ring_attention_sharded(q, k, v, mesh, causal=True)
     if cfg.attention_impl == "ulysses" and sp > 1:
-        return _ulysses(q, k, v, mesh)
+        return _ulysses(cfg, q, k, v, mesh)
     if cfg.attention_impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
@@ -306,17 +313,18 @@ def attention(cfg: LlamaConfig, q, k, v, mesh=None):
     return _attention_xla(q, k, v, causal=True)
 
 
-def _ulysses(q, k, v, mesh):
+def _ulysses(cfg: LlamaConfig, q, k, v, mesh):
     """Ulysses on a rank's heads (q/k/v: (b, s/sp, heads, hd), the heads
-    this tp rank holds). Where the heads do not divide by sp, it runs as
-    GSPMD runs JAX's Ulysses, whose ``shard_map`` spec keeps the heads
-    whole over tp: the heads gathered over tp, Ulysses on all of them, the
-    rank's heads of the output kept (the gather's backward keeps them
-    too)."""
+    this tp rank holds, or all of them). Where a rank's share of the heads
+    does not divide by sp, it runs as GSPMD runs JAX's Ulysses, whose
+    ``shard_map`` spec keeps the heads whole over tp: the heads gathered
+    over tp, Ulysses on all of them, the rank's heads of the output kept
+    (the gather's backward keeps them too)."""
     from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
 
     sp = mesh_shape(mesh)["sp"]
-    if q.shape[2] % sp == 0 and k.shape[2] % sp == 0:
+    if q.shape[2] == cfg.n_heads or (q.shape[2] % sp == 0
+                                     and k.shape[2] % sp == 0):
         return ulysses_attention_sharded(q, k, v, mesh, causal=True)
     h, i = q.shape[2], axis_index(mesh, "tp")
     q, k, v = (gather_from(t, mesh, "tp", dim=2) for t in (q, k, v))
@@ -337,42 +345,35 @@ def _on_whole_sequence(attn, q, k, v, mesh, dim: int):
     return attn(q, k, v, causal=True).narrow(dim, i * s, s)
 
 
-def _use(mesh, w, spec):
-    """A weight at use: ``w`` is this rank's block of a weight stored as
-    ``spec``; its fsdp dim is all-gathered (ZeRO-3: the backward
-    reduce-scatters the gradient over fsdp, whose ranks hold different
-    batch rows) and its tp dim is kept. Nothing to gather when fsdp is 1
-    (JAX's ``_use`` is the identity when fsdp and tp are both 1)."""
-    if mesh_shape(mesh)["fsdp"] == 1:
-        return w
-    return all_gather(w, mesh, "fsdp", dim=spec.index("fsdp"))
-
-
 def _weight(cfg: LlamaConfig, mesh, p, name: str):
-    """Layer weight ``name`` in the compute dtype, gathered for use."""
-    return _use(mesh, p[name].to(cfg.dtype), _LAYER_SPECS[name])
+    """Layer weight ``name`` in the compute dtype, gathered for use (fsdp
+    splits each layer weight's model dim)."""
+    return use(mesh, p[name].to(cfg.dtype), _LAYER_SPECS[name], cfg.dim)
 
 
 def _embed(cfg: LlamaConfig, mesh, tok_emb, tokens):
     """tokens → (b, s, dim) activations: tok_emb's vocab gathered over
     fsdp at use, this tp rank's dim columns looked up, the columns
     gathered over tp (the backward keeps the rank's columns)."""
-    e = _use(mesh, tok_emb.to(cfg.dtype), param_specs(cfg)["tok_emb"])
-    return gather_from(e[tokens], mesh, "tp", dim=-1)
+    e = use(mesh, tok_emb.to(cfg.dtype), param_specs(cfg)["tok_emb"],
+            cfg.vocab_size)
+    return gather_from(e[tokens], mesh, "tp", dim=-1, size=cfg.dim)
 
 
 def _head(cfg: LlamaConfig, mesh, lm_head):
     """lm_head at use, in the compute dtype: this rank's vocab columns
     (column parallel over tp), its dim gathered over fsdp. The loss
     gathers it once for all its chunks."""
-    return _use(mesh, lm_head.to(cfg.dtype), param_specs(cfg)["lm_head"])
+    return use(mesh, lm_head.to(cfg.dtype), param_specs(cfg)["lm_head"],
+               cfg.dim)
 
 
-def _logits(mesh, h, head):
+def _logits(cfg: LlamaConfig, mesh, h, head):
     """h (..., dim) → logits (..., vocab) by ``head`` (``_head``): the
     logits' columns are gathered over tp, so a rank holds its rows' logits
     whole, the contract of ``forward``."""
-    return gather_from(copy_to(h, mesh, "tp") @ head, mesh, "tp", dim=-1)
+    return gather_from(copy_to(h, mesh, "tp") @ head, mesh, "tp", dim=-1,
+                       size=cfg.vocab_size)
 
 
 def _ffn(cfg: LlamaConfig, mesh, h, p):
@@ -388,14 +389,21 @@ def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
     hd = cfg.head_dim
     b, s, _ = h.shape
     tp = mesh_shape(mesh)["tp"]
-    # this tp rank's heads: wq's / wk's columns and wo's rows are
-    # head-major, so a contiguous block of them is a block of heads
+    # this tp rank's heads, where tp splits them (``heads_split``)
     nh, nkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
     wq, wk, wv, wo = (_weight(cfg, mesh, p, n) for n in ("wq", "wk", "wv",
                                                          "wo"))
 
     x = copy_to(rms_norm(h, p["ln1"], cfg.norm_eps), mesh, "tp")
-    if cfg.attention_impl == "flash":
+    if not heads_split(mesh, cfg.n_heads, cfg.n_kv_heads):
+        # every head on every tp rank, from q, k and v gathered over tp
+        q, k, v = (gather_heads(x @ w, mesh, n, hd) for w, n in (
+            (wq, cfg.n_heads), (wk, cfg.n_kv_heads), (wv, cfg.n_kv_heads)))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        o = attention(cfg, q, k, v, mesh)
+        attn = own_columns(o.reshape(b, s, cfg.n_heads * hd), mesh) @ wo
+    elif cfg.attention_impl == "flash":
         # bhsd hot path: projections emit (b, h, s, hd) directly, the
         # kernel's layout
         from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
@@ -423,30 +431,6 @@ def _layer(cfg: LlamaConfig, mesh, h, layer_params, cos, sin,
     return h + _ffn(cfg, mesh, h, p)
 
 
-def _check_mesh(cfg: LlamaConfig, mesh) -> Dict[str, int]:
-    """The mesh's axis sizes; raises on a mesh the port does not run: pp
-    above 1 (a pipeline schedule, not ported) and weights that do not
-    split evenly (JAX pads an uneven shard; the port does not)."""
-    shape = mesh_shape(mesh)
-    if shape["pp"] > 1:
-        raise NotImplementedError(
-            f"a mesh with pp={shape['pp']} runs a pipeline schedule "
-            "(parallel/pipeline.py), not ported yet; dp, fsdp, tp and sp "
-            "are")
-    tp, fsdp = shape["tp"], shape["fsdp"]
-    uneven = [f"{name}={size} by {axis}={n}" for name, size, axis, n in (
-        ("n_kv_heads", cfg.n_kv_heads, "tp", tp),
-        ("n_heads", cfg.n_heads, "tp", tp),
-        ("ffn_dim", cfg.ffn_dim, "tp", tp), ("dim", cfg.dim, "tp", tp),
-        ("vocab_size", cfg.vocab_size, "tp", tp),
-        ("dim", cfg.dim, "fsdp", fsdp),
-        ("vocab_size", cfg.vocab_size, "fsdp", fsdp)) if size % n]
-    if uneven:
-        raise ValueError("the port splits weights evenly (JAX pads an uneven "
-                         "shard); cannot split " + ", ".join(uneven))
-    return shape
-
-
 def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
             mesh=None, positions: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
@@ -461,7 +445,7 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     if mesh is not None:
-        _check_mesh(cfg, mesh)
+        check_mesh(mesh)
         tokens = shard_of(tokens, data_spec(), mesh)
         positions = shard_of(positions, data_spec() if positions.dim() == 2
                              else P("sp"), mesh)
@@ -470,7 +454,8 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         h = _layer(cfg, mesh, h, layer_params(params, i), cos, sin)
     h = rms_norm(h, params["norm"], cfg.norm_eps)
-    return _logits(mesh, h, _head(cfg, mesh, params["lm_head"])).float()
+    return _logits(cfg, mesh, h, _head(cfg, mesh, params["lm_head"])
+                   ).float()
 
 
 def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
@@ -485,8 +470,9 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
     block alone: summed over the data axes, as ``make_train_step`` sums
     gradients, it is the global loss's. The s - 1 inputs are padded at
     the end to a multiple of sp (JAX's sharding takes uneven blocks; the
-    port's are equal): causal attention keeps the padding from every real
-    position, and its targets are masked out."""
+    port's sequence-parallel attention takes equal ones): causal
+    attention keeps the padding from every real position, and its
+    targets are masked out."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     count = targets.numel()
     if mesh is not None:
@@ -502,30 +488,13 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor,
         return nll.mean()
     local = torch.where(targets >= 0, nll, 0.0).sum()
     total = local.detach().clone()
-    _all_reduce_sum([total], mesh, DATA_AXES)
+    all_reduce_sum([total], mesh, DATA_AXES)
     return (local + (total - local.detach())) / count
 
 
 # ---------------------------------------------------------------------------
 # training step factory
 # ---------------------------------------------------------------------------
-
-# AdamW as the JAX package's ``optax.adamw(learning_rate)``: optax's defaults,
-# weight decay 1e-4 on every leaf, norms included (torch's default is 1e-2)
-ADAM_BETAS = (0.9, 0.999)
-ADAM_EPS = 1e-8
-WEIGHT_DECAY = 1e-4
-
-
-def adamw(leaves, learning_rate: float) -> torch.optim.AdamW:
-    """``optax.adamw(learning_rate)`` over ``leaves``: decoupled decay on
-    every leaf; the fused kernel on CUDA (PyTorch's own optimizer kernel,
-    as the JAX package left the optimizer to XLA)."""
-    return torch.optim.AdamW(
-        leaves, lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
-        weight_decay=WEIGHT_DECAY,
-        fused=True if leaves[0].is_cuda else None)
-
 
 def _dots_saveable(ctx, op, *args, **kwargs):
     """JAX's ``dots_with_no_batch_dims_saveable`` as a selective-checkpoint
@@ -570,9 +539,9 @@ def _backbone(cfg: LlamaConfig, mesh, params, tokens, positions, layer):
     return rms_norm(h, params["norm"], cfg.norm_eps)
 
 
-def _chunk_nll(mesh, head, h_c, tgt_c, mask_c):
+def _chunk_nll(cfg: LlamaConfig, mesh, head, h_c, tgt_c, mask_c):
     """Masked NLL sum over one sequence chunk. tgt -1 = no target."""
-    logits = _logits(mesh, h_c, head).float()
+    logits = _logits(cfg, mesh, h_c, head).float()
     logp = torch.log_softmax(logits, dim=-1)
     tgt = tgt_c.clamp_min(0).long()
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
@@ -602,7 +571,7 @@ def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
     denom = (targets >= 0).float().sum()
     positions = torch.arange(s, device=tokens.device)
     if mesh is not None:
-        _check_mesh(cfg, mesh)
+        check_mesh(mesh)
         tokens, targets = (shard_of(t, data_spec(), mesh)
                            for t in (tokens, targets))
         positions = shard_of(positions, P("sp"), mesh)
@@ -617,36 +586,16 @@ def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
         for c0 in range(0, s, chunk):
             cut = slice(c0, c0 + chunk)
             total = total + checkpoint(
-                _chunk_nll, mesh, head, h[:, cut],
+                _chunk_nll, cfg, mesh, head, h[:, cut],
                 targets[:, cut], mask[:, cut], use_reentrant=False,
                 preserve_rng_state=False)
         return total / denom
-    return _chunk_nll(mesh, head, h, targets, mask) / denom
+    return _chunk_nll(cfg, mesh, head, h, targets, mask) / denom
 
 
 # the axes whose ranks hold different data: the loss, and every gradient
 # the model's collectives have not summed already, are summed over them
 DATA_AXES = ("dp", "fsdp", "sp")
-
-
-def _all_reduce_sum(tensors, mesh, axes):
-    """Sum each tensor over the ranks that differ from this one on
-    ``axes`` (those of size 1 dropped), in place, as one flat fp32 buffer
-    (one collective; through host memory on gloo). Nothing to do when the
-    axes are all of size 1."""
-    shape = mesh_shape(mesh)
-    axes = tuple(a for a in axes if shape[a] > 1)
-    if not axes or not tensors:
-        return
-    group = axes_group(mesh, axes)
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    wire = to_wire(flat, stage(group))
-    dist.all_reduce(wire, group=group)
-    flat = wire.to(flat.device)
-    offset = 0
-    for t in tensors:
-        t.copy_(flat[offset:offset + t.numel()].view_as(t))
-        offset += t.numel()
 
 
 def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
@@ -656,8 +605,8 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
     The JAX package's ``make_train_step`` on one device (``mesh`` None or
     of one device) or on a ``DeviceMesh`` with dp, fsdp, tp and sp axes
     (``MeshSpec(...).build()``, one process a position; every rank calls
-    each function together). pp above 1 raises ``NotImplementedError``,
-    weights that do not split evenly ``ValueError``. ``device`` defaults
+    each function together; an axis need not divide the weights it
+    splits). pp above 1 raises ``NotImplementedError``. ``device`` defaults
     to CUDA. State = (params, optimizer): this rank's blocks of the
     parameters (``param_specs``) and AdamW as ``optax.adamw(learning_rate)``
     on them, so the moments are sharded as their parameters are
@@ -672,7 +621,7 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
                run again in the recompute, as under ``jax.checkpoint``
       True   — recompute the whole layer
     """
-    shape = _check_mesh(cfg, mesh)
+    shape = check_mesh(mesh)
     dev = resolve_device(device)
     specs = param_specs(cfg)
     sharded = shape["fsdp"] > 1 or shape["tp"] > 1
@@ -723,18 +672,7 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
         loss.backward()
         loss = loss.detach()
         if mesh is not None:
-            # every gradient is summed over dp and sp; over fsdp too where
-            # the fsdp gather at use has not reduce-scattered it (ln1, ln2,
-            # norm); never over tp, on which the Megatron collectives leave
-            # each rank's gradient whole
-            by_axes = {DATA_AXES: [loss]}
-            for leaf, spec in tree_leaves(
-                    tree_map(lambda t, spec: (t, spec), params, specs)):
-                axes = (("dp", "sp") if "fsdp" in spec and shape["fsdp"] > 1
-                        else DATA_AXES)
-                by_axes.setdefault(axes, []).append(leaf.grad)
-            for axes, tensors in by_axes.items():
-                _all_reduce_sum(tensors, mesh, axes)
+            sum_gradients(params, specs, mesh, DATA_AXES, extra=[loss])
         opt.step()
         return state, loss
 

@@ -179,14 +179,20 @@ def _kernel_takes(q, k, v, *more) -> bool:
     """Whether the CUDA kernels take these inputs, wherever they lie: q,
     k, v and ``more`` (dO where given) in bf16, head_dim 64 or 128,
     h % kvh == 0. Layout is no part of it: the entries hand the kernels
-    their inputs through ``_kernel_input``."""
+    their inputs through ``_kernel_input``. head_dim 64 (ViT-B/16's and
+    ViT-L/16's) launches the kernels here, where the JAX package's TPU
+    predicate (``hd % 128 == 0``) sends it to its XLA fallback: both
+    compute the same function, so the routing differs and the result does
+    not."""
     return (all(t.dtype == torch.bfloat16 for t in (q, k, v) + more)
             and q.shape[3] in (64, 128) and q.shape[1] % k.shape[1] == 0)
 
 
 def _supported_on_cuda(q, k, v, *more) -> bool:
-    """The port's ``_supported_on_tpu``: CUDA inputs the kernels take. The
-    rest take the plain versions."""
+    """The port's ``_supported_on_tpu``: CUDA inputs the kernels take
+    (``_kernel_takes``; unlike the TPU predicate it takes head_dim 64 and
+    any sequence length, a ragged 196 included). The rest take the plain
+    versions."""
     return q.is_cuda and _kernel_takes(q, k, v, *more)
 
 

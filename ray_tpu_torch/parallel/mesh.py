@@ -20,9 +20,12 @@ Sharding is explicit, in JAX's terms: a spec (``P``, JAX's
 ``PartitionSpec``) names, for each dim of a global tensor, the mesh axes it
 is split over, and ``shard_of`` cuts out the block that JAX's
 ``NamedSharding`` places on this rank's mesh position (``gather_full`` is
-the inverse). Each rank holds only its
-blocks; the model (``models/llama.py``) moves data between them with the
-collectives below, where GSPMD would insert them:
+the inverse). Where the axes do not divide a dim, the blocks are GSPMD's:
+ceil(n / k) long, the last ones short or empty (``block_range``); the
+gathers then pad each block for the collective and cut the padding off.
+Each rank holds only its blocks; the models (``models/llama.py``,
+``models/vit.py``) move data between them with the collectives below,
+where GSPMD would insert them:
 
 * ``all_gather`` — tiled all-gather whose backward reduce-scatters: the
   fsdp gather of a weight at use, and the K/V all-gather of plain
@@ -32,7 +35,9 @@ collectives below, where GSPMD would insert them:
   reverse;
 * ``gather_from`` — all-gather of an activation that every rank of the
   axis needs whole, whose backward keeps this rank's slice: the gradient
-  is already whole on each rank, so summing it would count it once a rank.
+  is already whole on each rank, so summing it would count it once a rank;
+* ``AllToAll`` — chunk j of the first dim to rank j, its own gradient
+  (Ulysses, the MoE exchange).
 
 A gloo group's transport takes host memory only, so collectives on a gloo
 group stage CUDA tensors through the host (``stage``): that is how several
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -141,39 +146,49 @@ def _dim_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def block_range(n: int, k: int, i: int) -> Tuple[int, int]:
+    """(start, length) of block ``i`` of a dim of ``n`` split into ``k``
+    blocks as JAX's GSPMD splits it: blocks of ceil(n / k), so where k does
+    not divide n the last blocks are short or empty (GSPMD pads them at
+    the end)."""
+    size = -(-n // k)
+    start = min(i * size, n)
+    return start, min(size, n - start)
+
+
 def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of the global tensor ``t`` under ``spec``: the
     block JAX's ``NamedSharding(mesh, spec)`` puts on the device at this
-    rank's mesh position (a view; raises on a dim the axes do not divide).
-    A dim split over several axes is cut into their product of blocks, the
-    first axis outermost."""
+    rank's mesh position (a view). A dim split over several axes is cut
+    into their product of blocks, the first axis outermost; a dim they do
+    not divide is cut as GSPMD cuts it (``block_range``)."""
     shape = mesh_shape(mesh)
     for dim, entry in enumerate(spec):
         axes = _dim_axes(entry)
         n = math.prod(shape[a] for a in axes)
         if n == 1:
             continue
-        if t.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
-                             f"split evenly over {axes} ({n} blocks)")
         block = 0
         for a in axes:
             block = block * shape[a] + axis_index(mesh, a)
-        size = t.shape[dim] // n
-        t = t.narrow(dim, block * size, size)
+        t = t.narrow(dim, *block_range(t.shape[dim], n, block))
     return t
 
 
 def gather_full(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The global tensor from every rank's block ``t`` under ``spec``, on
-    every rank (``shard_of``'s inverse; no gradient). For tests, checks
-    and checkpoints: the model itself never holds a whole weight."""
+    every rank (``shard_of``'s inverse, uneven blocks included; no
+    gradient). For tests, checks and checkpoints: the model itself never
+    holds a whole weight."""
     shape = mesh_shape(mesh)
     for dim, entry in enumerate(spec):
         # the innermost axis's blocks are adjacent: gather it first
         for a in reversed(_dim_axes(entry)):
             if shape[a] > 1:
-                t = _gather(t, mesh.get_group(a), dim)
+                group = mesh.get_group(a)
+                lengths = _gather(torch.tensor([t.shape[dim]],
+                                               device=t.device), group, 0)
+                t = _gather(t, group, dim, lengths.tolist())
     return t
 
 
@@ -198,6 +213,26 @@ def axes_group(mesh, axes):
             if me in ranks:
                 groups[key] = group
     return groups[key]
+
+
+def all_reduce_sum(tensors, mesh, axes):
+    """Sum each tensor over the ranks that differ from this one on
+    ``axes`` (those of size 1 dropped), in place, as one flat fp32 buffer
+    (one collective; through host memory on gloo). Nothing to do when the
+    axes are all of size 1."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in axes if shape[a] > 1)
+    if not axes or not tensors:
+        return
+    group = axes_group(mesh, axes)
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    wire = to_wire(flat, stage(group))
+    dist.all_reduce(wire, group=group)
+    flat = wire.to(flat.device)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def tree_map(fn, tree, *rest):
@@ -253,14 +288,40 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     return t.cpu() if staged else t
 
 
-def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _gather(x: torch.Tensor, group, dim: int, lengths=None) -> torch.Tensor:
     """The blocks ``x`` of every rank of ``group`` concatenated along
-    ``dim`` in rank order."""
+    ``dim`` in rank order. ``lengths`` (each rank's length along ``dim``)
+    where they differ: each block is padded to the longest for the
+    collective and cut back after it."""
     wire = to_wire(x, stage(group))
+    if lengths is not None:
+        wire = _pad_to(wire, dim, max(lengths))
     parts = [torch.empty_like(wire)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, wire, group=group)
+    if lengths is not None:
+        parts = [p.narrow(dim, 0, n) for p, n in zip(parts, lengths)]
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _pad_to(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``dim`` to length ``n``."""
+    if x.shape[dim] == n:
+        return x
+    pad = list(x.shape)
+    pad[dim] = n - x.shape[dim]
+    return torch.cat([x, x.new_zeros(pad)], dim=dim)
+
+
+def _block_lengths(size, group):
+    """Each rank's block length of a dim of global length ``size`` split
+    over ``group`` (``block_range``), or None where the split is even or
+    ``size`` is None: the collectives then take equal blocks as they
+    are."""
+    k = dist.get_world_size(group)
+    if size is None or size % k == 0:
+        return None
+    return [block_range(size, k, i)[1] for i in range(k)]
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -274,25 +335,32 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     """The blocks of every rank of ``group`` concatenated along ``dim`` in
-    rank order; the backward reduce-scatters: each rank gets the sum, over
-    the ranks in rank order, of the gradient of its own block. gloo has no
+    rank order (``size`` the global length where the blocks are uneven);
+    the backward reduce-scatters: each rank gets the sum, over the ranks in
+    rank order, of the gradient of its own block. gloo has no
     reduce-scatter, so it is an all-to-all and a local sum."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
+    def forward(ctx, x, group, dim, size):
         ctx.group, ctx.dim = group, dim
-        return _gather(x, group, dim)
+        ctx.lengths = _block_lengths(size, group)
+        return _gather(x, group, dim, ctx.lengths)
 
     @staticmethod
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
+        if ctx.lengths is not None:
+            g = _pad_to(g, ctx.dim, n * max(ctx.lengths))
         send = to_wire(torch.stack(g.chunk(n, dim=ctx.dim)), stage(ctx.group))
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=ctx.group)
         total = recv[0]
         for part in recv[1:]:
             total = total + part
-        return total.to(g.device), None, None
+        if ctx.lengths is not None:
+            total = total.narrow(
+                ctx.dim, 0, ctx.lengths[dist.get_rank(ctx.group)])
+        return total.to(g.device), None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -321,26 +389,55 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 class _GatherFrom(torch.autograd.Function):
-    """The blocks of every rank of ``group`` concatenated along ``dim``;
-    the backward keeps this rank's block of the gradient and sums
-    nothing."""
+    """The blocks of every rank of ``group`` concatenated along ``dim``
+    (``size`` the global length where the blocks are uneven); the backward
+    keeps this rank's block of the gradient and sums nothing."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.n, ctx.dim = dist.get_world_size(group), dim
-        ctx.index = dist.get_rank(group)
-        return _gather(x, group, dim)
+    def forward(ctx, x, group, dim, size):
+        ctx.dim, ctx.length = dim, x.shape[dim]
+        lengths = _block_lengths(size, group)
+        index = dist.get_rank(group)
+        ctx.start = (index * x.shape[dim] if lengths is None
+                     else sum(lengths[:index]))
+        return _gather(x, group, dim, lengths)
 
     @staticmethod
     def backward(ctx, g):
-        return g.chunk(ctx.n, dim=ctx.dim)[ctx.index], None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.length), None, None, None
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Chunk j of ``x``'s first dim goes to rank j of ``group``; the result
+    stacks the chunks received, in rank order."""
+    send = to_wire(x, stage(group))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.to(x.device)
+
+
+class AllToAll(torch.autograd.Function):
+    """``_all_to_all`` on ``group`` with its gradient: exchanging chunk j
+    with rank j is its own inverse, so the backward is the same exchange.
+    Ulysses' head scatter and the MoE bucket exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
+               size: Optional[int] = None) -> torch.Tensor:
     """``x`` of every rank on the mesh's ``axis``, concatenated along
     ``dim`` in axis order (``lax.all_gather(..., tiled=True)``), with the
-    reduce-scatter as its gradient."""
-    return _AllGather.apply(x, mesh.get_group(axis), dim)
+    reduce-scatter as its gradient. ``size``: the global length of ``dim``
+    where the axis does not divide it (the blocks ``shard_of`` cuts)."""
+    return _AllGather.apply(x, mesh.get_group(axis), dim, size)
 
 
 def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -363,12 +460,14 @@ def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _ReduceFrom.apply(x, mesh.get_group(axis))
 
 
-def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int,
+                size: Optional[int] = None) -> torch.Tensor:
     """``x`` of every rank on ``axis`` concatenated along ``dim``, for an
     activation every rank then uses whole (a tp rank's embedding columns
     or logits columns). Its gradient is whole and equal on every rank, so
     the backward keeps this rank's block: ``all_gather``'s reduce-scatter
-    would count it once a rank. Identity on an axis of size 1."""
+    would count it once a rank. ``size`` as for ``all_gather``. Identity
+    on an axis of size 1."""
     if mesh_shape(mesh)[axis] == 1:
         return x
-    return _GatherFrom.apply(x, mesh.get_group(axis), dim)
+    return _GatherFrom.apply(x, mesh.get_group(axis), dim, size)

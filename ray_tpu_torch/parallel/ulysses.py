@@ -12,41 +12,15 @@ sequence. On a gloo group the all-to-alls go through host memory
 
 from __future__ import annotations
 
-import torch
-import torch.distributed as dist
-
 from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.parallel.mesh import mesh_shape, stage, to_wire
-
-
-def _all_to_all(x, group):
-    """Chunk j of ``x``'s first dim goes to rank j of ``group``; the result
-    stacks the chunks received, in rank order."""
-    send = to_wire(x, stage(group))
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv.to(x.device)
-
-
-class _AllToAll(torch.autograd.Function):
-    """``_all_to_all`` with its gradient: exchanging chunk j with rank j is
-    its own inverse, so the backward is the same exchange."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
+from ray_tpu_torch.parallel.mesh import AllToAll, mesh_shape
 
 
 def _scatter_heads(x, group, sp):
     """(b, s/sp, h, hd) -> (b, s, h/sp, hd): scatter heads, gather seq."""
     b, sl, h, hd = x.shape
     chunks = x.reshape(b, sl, sp, h // sp, hd).permute(2, 0, 1, 3, 4)
-    y = _AllToAll.apply(chunks, group)  # (sp source ranks, b, sl, h/sp, hd)
+    y = AllToAll.apply(chunks, group)  # (sp source ranks, b, sl, h/sp, hd)
     return y.permute(1, 0, 2, 3, 4).reshape(b, sp * sl, h // sp, hd)
 
 
@@ -54,7 +28,7 @@ def _gather_heads(x, group, sp):
     """(b, s, h/sp, hd) -> (b, s/sp, h, hd): scatter seq, gather heads."""
     b, s, hl, hd = x.shape
     chunks = x.reshape(b, sp, s // sp, hl, hd).permute(1, 0, 2, 3, 4)
-    y = _AllToAll.apply(chunks, group)  # (sp source ranks, b, s/sp, hl, hd)
+    y = AllToAll.apply(chunks, group)  # (sp source ranks, b, s/sp, hl, hd)
     return y.permute(1, 2, 0, 3, 4).reshape(b, s // sp, sp * hl, hd)
 
 

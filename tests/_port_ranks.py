@@ -325,3 +325,86 @@ def shard_global_state(shape, tree, tokens, lr, dp, sp, fsdp, tp):
     global_state, _ = step_one(init_one(params_from_jax(tree, "cpu")), toks)
     _, want_loss = step_one(global_state, toks)
     return placed_ok, float(loss), float(want_loss)
+
+
+def _vit_cfg(shape, impl):
+    import torch
+
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    return ViTConfig(dtype=torch.float32, param_dtype=torch.float32,
+                     attention_impl=impl, **shape)
+
+
+def vit_forward(shape, tree, images, impl, dp, fsdp, tp):
+    """This rank's logits block of the ViT ``forward`` on the (dp, fsdp,
+    tp) mesh from its blocks of the carried weights, and the block's row
+    offset."""
+    import torch
+
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel.mesh import axis_index
+
+    mesh = _mesh(dp, 1, fsdp, tp)
+    cfg = _vit_cfg(shape, impl)
+    params = tv.shard_params(cfg, params_from_jax(tree, "cpu"), mesh)
+    with torch.no_grad():
+        logits = tv.forward(cfg, params, torch.from_numpy(images), mesh)
+    row = axis_index(mesh, "dp") * fsdp + axis_index(mesh, "fsdp")
+    return _np(logits), row * images.shape[0] // (dp * fsdp)
+
+
+def vit_train(shape, tree, images, labels, impl, steps, lr, dp, fsdp, tp):
+    """Losses of ``steps`` steps of the ViT ``make_train_step`` on the (dp,
+    fsdp, tp) mesh, from the carried weights (or from seed 0 where ``tree``
+    is None); rank 0 also returns the gathered parameters after them."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel.mesh import tree_map
+
+    cfg = _vit_cfg(shape, impl)
+    mesh = _mesh(dp, 1, fsdp, tp)
+    init_state, shard_state, train_step, dev = tv.make_train_step(
+        cfg, mesh, learning_rate=lr, device="cpu")
+    state = shard_state(init_state(
+        0 if tree is None else params_from_jax(tree, "cpu")))
+    x, y = torch.from_numpy(images), torch.from_numpy(labels)
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, x, y)
+        losses.append(float(loss))
+    params = tree_map(_np, tv.gather_state(cfg, state, mesh))
+    return losses, params if dist.get_rank() == 0 else None
+
+
+def moe_ep(tree, x, dp, fsdp, tp, top_k, capacity_factor, aux_weight=0.0):
+    """``moe_ffn_ep`` over the tp axis of the (dp, fsdp, tp) mesh from this
+    rank's blocks of the carried parameters, tokens split over dp (the
+    default ``tokens_spec``): this rank's y block and its row offset, aux,
+    and the gradients of mean(y²) + ``aux_weight`` aux over the global y,
+    summed over dp and gathered whole (rank 0 only)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import (all_reduce_sum, axis_index,
+                                            gather_full, shard_of)
+    from ray_tpu_torch.parallel.moe import moe_ffn_ep, moe_param_specs
+
+    mesh = _mesh(dp, 1, fsdp, tp)
+    specs = moe_param_specs("tp")
+    params = {k: shard_of(torch.from_numpy(v), specs[k], mesh).clone()
+              .requires_grad_() for k, v in tree.items()}
+    y, aux = moe_ffn_ep(params, torch.from_numpy(x), mesh=mesh, axis="tp",
+                        top_k=top_k, capacity_factor=capacity_factor)
+    loss = y.square().sum() / x.size + aux_weight * aux
+    loss.backward()
+    grads = {k: p.grad for k, p in params.items()}
+    all_reduce_sum(list(grads.values()), mesh, ("dp",))
+    grads = {k: _np(gather_full(g, specs[k], mesh)) for k, g in grads.items()}
+    row = axis_index(mesh, "dp") * y.shape[0]
+    return (_np(y), row, float(aux),
+            grads if dist.get_rank() == 0 else None)

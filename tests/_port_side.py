@@ -441,6 +441,12 @@ def cuda_default_errors(shape, tree):
         "build_model": lambda: LLMConfig().build_model(),
         "make_train_step": lambda: tl.make_train_step(_cfg(shape))[0](0),
     }
+    return _errors(calls)
+
+
+def _errors(calls):
+    """The RuntimeError text each of ``calls`` raises (None if it does
+    not), and whether this machine has CUDA."""
     out = {"cuda_available": torch.cuda.is_available()}
     for name, fn in calls.items():
         try:
@@ -691,3 +697,97 @@ def sleep(seconds):
     """A call that outlasts a short ``_port_proc.spawn`` timeout."""
     time.sleep(seconds)
     return seconds
+
+
+# -- models/vit.py, parallel/moe.py ------------------------------------------
+
+
+def _vit_cfg(shape, impl):
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    return ViTConfig(dtype=torch.float32, param_dtype=torch.float32,
+                     attention_impl=impl, **shape)
+
+
+def vit_patchify(shape, images):
+    from ray_tpu_torch.models.vit import patchify
+
+    return _np(patchify(_vit_cfg(shape, "xla"), _T(images)))
+
+
+def vit_facts(images):
+    """The tiny config's parameter count from ``init_params`` (seeded twice)
+    and its forward on ``images``; the presets' ``num_params``."""
+    from ray_tpu_torch.models import vit as tv
+
+    cfg = tv.ViTConfig.tiny()
+    p = tv.init_params(cfg, 0, device="cpu")
+    again = tv.init_params(cfg, 0, device="cpu")
+    logits = tv.forward(cfg, p, _T(images))
+    return dict(
+        n=sum(int(t.numel()) for t in tv.tree_leaves(p)),
+        same=all(torch.equal(a, b) for a, b in zip(tv.tree_leaves(p),
+                                                   tv.tree_leaves(again))),
+        head_zero=bool((p["head"] == 0).all()),
+        shape=tuple(logits.shape), dtype=str(logits.dtype),
+        finite=bool(torch.isfinite(logits).all()),
+        num_params={name: getattr(tv.ViTConfig, name)().num_params()
+                    for name in ("tiny", "base", "large")},
+        head_dim=tv.ViTConfig.base().head_dim,
+        num_patches=tv.ViTConfig.base().num_patches)
+
+
+def vit_forward(shape, tree, images, impl):
+    from ray_tpu_torch.models.vit import forward as vit_fwd
+
+    with torch.no_grad():
+        return _np(vit_fwd(_vit_cfg(shape, impl),
+                           params_from_jax(tree, "cpu"), _T(images)))
+
+
+def vit_train(shape, tree, images, labels, steps, lr, impl="flash"):
+    """Losses of ``steps`` steps of the ViT ``make_train_step`` on one
+    device from the carried weights, and the parameters after them."""
+    from ray_tpu_torch.models.vit import make_train_step as vit_step
+
+    init_state, shard_state, train_step, dev = vit_step(
+        _vit_cfg(shape, impl), learning_rate=lr, device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, _T(images), _T(labels))
+        losses.append(float(loss))
+    return losses, tree_map(_np, state[0])
+
+
+def moe_single(tree, x, top_k, capacity_factor, with_grads=False):
+    """``moe_ffn`` on the carried parameters: (y, aux), and with
+    ``with_grads`` the gradients of mean(y²)."""
+    from ray_tpu_torch.parallel.moe import moe_ffn
+
+    params = {k: _T(v).requires_grad_() for k, v in tree.items()}
+    y, aux = moe_ffn(params, _T(x), top_k=top_k,
+                     capacity_factor=capacity_factor)
+    if not with_grads:
+        return _np(y), float(aux)
+    y.square().mean().backward()
+    return _np(y), float(aux), {k: _np(p.grad) for k, p in params.items()}
+
+
+def moe_route(logits, top_k, capacity):
+    from ray_tpu_torch.parallel.moe import _route
+
+    return tuple(_np(t) for t in _route(_T(logits), top_k, capacity))
+
+
+def vit_moe_cuda_default_errors():
+    """``cuda_default_errors`` for the ViT and MoE entry points."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel.moe import init_moe_params
+
+    cfg = vit.ViTConfig.tiny()
+    return _errors({
+        "vit.init_params": lambda: vit.init_params(cfg),
+        "vit.make_train_step": lambda: vit.make_train_step(cfg)[0](0),
+        "init_moe_params": lambda: init_moe_params(0, 16, 32, 8),
+    })

@@ -11,8 +11,10 @@ against JAX's on the same mesh shape, 5 AdamW steps from the same weights
 (``params_from_jax``) on the same global batch: the losses, the gathered
 parameters and the first step's gathered gradients (a collective that sums
 over tp, or sums a gradient twice over fsdp, doubles a gradient; AdamW's
-normalisation hides that from the losses for a step or two). Last, the
-refusal of weights that do not split evenly.
+normalisation hides that from the losses for a step or two). Last, meshes
+whose axes do not divide what they split (3 kv heads over tp 2, ffn 250
+and vocab 510 over tp 4, vocab 510 over fsdp 4, dim 100 over fsdp 8):
+``forward`` and 3 steps against JAX's program on the same mesh shape.
 
 All fp32 on the CPU, on ``tiny``'s widths with 8 query and 4 kv heads, so
 that Ulysses can split them. The port runs in a spawned child
@@ -94,19 +96,31 @@ def test_shard_of_is_the_block_jax_places_on_device_r(port, axes):
     activation and weight specs against the data of the
     ``addressable_shards`` that JAX's ``NamedSharding`` puts on mesh device
     r (rank r is at device r's mesh position); ``gather_full`` of the
-    block gives the global array back."""
+    block gives the global array back. The last four arrays have dims
+    their axes do not divide (blocks 2, 2, 2, 0 of 6 rows over dp x fsdp
+    among them): JAX places no such array outside a program, and inside
+    one GSPMD pads each such dim at its end to a multiple of its blocks,
+    so device r's block is its block of the padded array less the
+    padding."""
     mesh = _jmesh(**axes)
     rng = np.random.RandomState(3)
     specs = [data_spec(), activation_spec(), PartitionSpec(None, "fsdp", "tp"),
              PartitionSpec(None, "tp", "fsdp"), PartitionSpec("fsdp", "tp"),
-             PartitionSpec(None)]
-    shapes = [(8, 16), (8, 16, 6), (3, 8, 12), (3, 12, 8), (8, 12), (12,)]
+             PartitionSpec(None), data_spec(),
+             PartitionSpec(None, "fsdp", "tp"), PartitionSpec("fsdp", "tp"),
+             activation_spec()]
+    shapes = [(8, 16), (8, 16, 6), (3, 8, 12), (3, 12, 8), (8, 12), (12,),
+              (6, 5), (3, 7, 5), (5, 9), (7, 6, 3)]
     arrays = [rng.randn(*s).astype(np.float32) for s in shapes]
     want = []
     for a, spec in zip(arrays, specs):
-        placed = jax.device_put(a, NamedSharding(mesh, spec))
-        want.append({sh.device.id: np.asarray(sh.data)
-                     for sh in placed.addressable_shards})
+        blocks = [int(np.prod([mesh.shape[x] for x in
+                               ((e,) if isinstance(e, str) else e or ())]))
+                  for e in tuple(spec) + (None,) * (a.ndim - len(spec))]
+        padded = np.pad(a, [(0, -n % k) for n, k in zip(a.shape, blocks)])
+        placed = jax.device_put(padded, NamedSharding(mesh, spec))
+        want.append({sh.device.id: a[sh.index] for sh in
+                     placed.addressable_shards})
     got = port("sp_call", "shards", arrays, [tuple(s) for s in specs],
                axes.get("dp", 1), axes.get("fsdp", 1), axes.get("tp", 1),
                axes.get("sp", 1))
@@ -231,15 +245,75 @@ def _pairs(got, want):
     return pairs
 
 
-@pytest.mark.parametrize("axes,shape,named", [
-    ({"tp": 8}, {}, "n_kv_heads=4 by tp=8"),
-    ({"tp": 4}, {"ffn_dim": 250}, "ffn_dim=250 by tp=4"),
-    ({"fsdp": 3}, {}, "dim=128 by fsdp=3"),
-    ({"fsdp": 4}, {"vocab_size": 510}, "vocab_size=510 by fsdp=4"),
-])
-def test_uneven_shards_are_refused(port, axes, shape, named):
-    """A weight whose sharded dim does not divide by its axes raises
-    ValueError naming the sizes (JAX pads the last shard; the port's
-    shards are equal)."""
-    kind, text = port("train_step_mesh", dict(SHAPE, **shape), axes)
-    assert kind == "ValueError" and named in text, text
+# meshes that fill the 8 ranks, each with an axis that does not divide
+# what it splits: (impl, mesh axes, widths over SHAPE's)
+UNEVEN = [
+    # 3 kv heads (and 6 heads of 16) over tp 2: every tp rank runs
+    # attention on all heads; vocab 250 and ffn 200 split evenly
+    ("flash", dict(dp=4, tp=2), dict(dim=96, n_heads=6, n_kv_heads=3,
+                                     ffn_dim=200, vocab_size=250)),
+    # ffn 250 over tp 4: w1/w3 columns and w2 rows 63, 63, 63, 61; vocab
+    # 510 over tp 4: lm_head columns 128, 128, 128, 126, gathered
+    ("xla", dict(dp=2, tp=4), dict(ffn_dim=250, vocab_size=510)),
+    # vocab 510 over fsdp 4: tok_emb rows 128, 128, 128, 126
+    ("flash", dict(dp=2, fsdp=4), dict(vocab_size=510)),
+    # dim 100 over fsdp 8: every weight's model dim 13 a rank, 9 on the last
+    ("xla", dict(fsdp=8), dict(dim=100, n_heads=10, n_kv_heads=5)),
+]
+UNEVEN_STEPS = 3
+
+
+@pytest.mark.parametrize("impl,axes,widths", UNEVEN,
+                         ids=["tp2_kv3", "tp4_ffn250", "fsdp4_vocab510",
+                              "fsdp8_dim100"])
+def test_uneven_mesh_matches_jax(port, impl, axes, widths):
+    """A mesh whose axes do not divide a weight, as JAX computes on it:
+    each rank's ``forward`` block of the logits against its slice of
+    JAX's, then 3 ``make_train_step`` steps against JAX's on the same mesh
+    shape from the same weights on the same global batch: the losses,
+    the gathered parameters after them and the first step's gathered
+    gradients, at ``test_train_step_on_dp2_fsdp2_tp2_matches_jax``'s
+    tolerances. JAX's side takes its weights whole and places them by
+    ``param_specs`` inside its program (GSPMD pads an uneven split;
+    ``device_put`` refuses one)."""
+    shape = dict(SHAPE, **widths)
+    cfg = jl.LlamaConfig(dtype=jnp.float32, param_dtype=jnp.float32,
+                         attention_impl=impl, **shape)
+    jp = jl.init_params(cfg, jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.array, jp)  # copies: JAX's step donates jp
+    dp, fsdp, tp = (axes.get(a, 1) for a in ("dp", "fsdp", "tp"))
+    toks = np.random.RandomState(11).randint(
+        0, cfg.vocab_size, size=(8, 32)).astype(np.int32)
+    mesh = _jmesh(**axes)
+    t = jax.device_put(jnp.asarray(toks), NamedSharding(mesh, data_spec()))
+    want_logits = np.asarray(jax.jit(
+        lambda p, x: jl.forward(cfg, p, x, mesh))(jp, t))
+    for logits, r0, c0 in port("sp_call", "forward", shape, tree, toks,
+                               impl, dp, 1, fsdp, tp):
+        rows = logits.shape[0]
+        assert logits.shape == (8 // (dp * fsdp), 32, cfg.vocab_size)
+        np.testing.assert_allclose(logits, want_logits[r0:r0 + rows],
+                                   rtol=2e-4, atol=2e-4)
+    want_grads = jax.tree.map(np.asarray, jax.jit(jax.grad(
+        lambda p, x: jl.loss_fn(cfg, p, x, mesh)))(jp, t))
+    init_state, _, train_step, _ = jl.make_train_step(
+        cfg, mesh, learning_rate=LR, loss_chunk=0)
+    state = (jp, init_state(jax.random.key(0))[1])
+    want = []
+    for _ in range(UNEVEN_STEPS):
+        state, loss = train_step(state, t)
+        want.append(float(loss))
+    results = port("sp_call", "train", shape, tree, toks, impl, False, 0,
+                   UNEVEN_STEPS, LR, dp, 1, fsdp, tp, with_grads=True)
+    for losses, _, _, _ in results:
+        np.testing.assert_allclose(losses, want, rtol=1e-4)
+    got_params, got_grads = results[0][1], results[0][3]
+    for key, g, w in _pairs(got_params, jax.tree.map(np.asarray, state[0])):
+        assert g.shape == w.shape, (key, g.shape, w.shape)
+        diff = np.abs(g - w)
+        assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIER_FRAC, (
+            key, np.sort(diff.ravel())[-5:])
+        assert diff.max() <= LR * UNEVEN_STEPS, (key, diff.max())
+    for key, g, w in _pairs(got_grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_ATOL,
+                                   err_msg=key)
