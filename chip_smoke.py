@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs twelve phases and fails (exit 1) if any check fails:
+runs thirteen phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -43,7 +43,8 @@ runs twelve phases and fails (exit 1) if any check fails:
             not, with the global lse/delta of a two-hop forward.
 * route   — the three public entries on CUDA inputs the kernels do not
             take (fp32; bf16 at head_dim 32), forward and backward: no
-            kernel launch, and the plain versions' results on the card.
+            kernel launch, and the plain versions' results on the card;
+            an empty bf16 batch launches nothing either.
 * ring    — the sequence-parallel path on sp 4: four processes on the one
             card over a gloo group (NCCL refuses two ranks on one GPU), every
             collective staged through host memory. Ring and Ulysses attention
@@ -63,6 +64,19 @@ runs twelve phases and fails (exit 1) if any check fails:
             launches a step a rank at the rank's shape (b4 h4 kvh2 s2048
             hd128), the step's seconds and each rank's peak memory. Its
             times measure time-slicing too.
+* pipe    — GPipe over pp 4 (``parallel/pipeline.py``): four processes
+            on the card over gloo, as in ``shard``, each a stage of 4 of
+            the flagship's 16 layers ("flash", no remat) at full width;
+            8 microbatches of one sequence of the b8 x 2048 train batch,
+            one warm-up and 2 timed steps. Gates: each loss within 1e-2 of
+            the single-device "flash" step; each rank's step-one
+            gradients and parameters against the reference's layers
+            [4s, 4s + 4), tok_emb, norm and lm_head (the shard phase's
+            tolerances); K1 = K2 = K3 = 32 launches a step a rank, all at
+            (1, 8, 4, 2048, 128) causal, K4 none; 201 MB of hand-offs a
+            step. Step ms and peak memory a rank, the bubble share 3/11;
+            its times measure time-slicing too. ``k1``/``k23`` hold K1-K3
+            at that shape.
 * vit     — ViT-B/16 (86.5M parameters, 224² images, patch 16, 12 layers,
             12 heads of 64) at full width and depth: fp32 parameters, bf16
             compute, "flash", no remat, one seeded batch of 128 NHWC
@@ -93,8 +107,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
@@ -108,11 +124,14 @@ SEED = 0
 # 2048, at Llama-3-8B's heads; one MHA shape at head_dim 64; the training
 # flagship's shape, and a rank's share of it in the shard phase (half the
 # rows over fsdp, half the heads over tp); ViT-B/16's at the vit phase's
-# batch (196 patches: every 64-row tile of it a tail tile)
+# batch (196 patches: every 64-row tile of it a tail tile); the pipe
+# phase's microbatch
 VIT_SHAPE = (128, 12, 12, 196, 64)
+# a pipe-phase microbatch: one sequence of the flagship, all 8 heads
+PIPE_SHAPE = (1, 8, 4, 2048, 128)
 K1_SHAPES = [(1, 32, 8, s, 128) for s in (64, 200, 256, 512, 2048)] + [
     (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128), (4, 4, 2, 2048, 128),
-    VIT_SHAPE]
+    VIT_SHAPE, PIPE_SHAPE]
 K1_MAIN_SHAPE = (1, 32, 8, 512, 128)  # the serve phase's largest bucket
 
 
@@ -273,10 +292,11 @@ def phase_k1(dev):
 # (b, h, kvh, s, hd) of the K2/K3 check: the training flagship's heads and
 # batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s,
 # one MHA shape at head_dim 64, a shard-phase rank's share of the flagship
-# (its grid is a quarter of the flagship's) and ViT-B/16's
+# (its grid is a quarter of the flagship's), ViT-B/16's and a pipe-phase
+# microbatch's
 K23_SHAPES = [(8, 8, 4, 2048, 128), (1, 32, 8, 2048, 128),
               (1, 32, 8, 200, 128), (2, 8, 8, 384, 64), (4, 4, 2, 2048, 128),
-              VIT_SHAPE]
+              VIT_SHAPE, PIPE_SHAPE]
 K23_MAIN_SHAPE = K23_SHAPES[0]
 # each gradient is accumulated in fp32 and rounded to bf16 once (2^-8
 # relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
@@ -699,6 +719,22 @@ def phase_route(dev):
                    f"{entry} on {dt_name} hd {hd}: launched a kernel or "
                    f"differs from its plain version beyond ||err||/||ref|| "
                    f"{TOL_ROUTE}: {row}")
+    # an empty batch the kernels would take (a pipeline microbatch of which
+    # a data rank holds no row): no launch, empty results of its shapes
+    q, k, v, g = (torch.zeros((0, n, s, ROUTE_VIEW_HD), device=dev,
+                              dtype=torch.bfloat16) for n in (h, kvh, kvh, h))
+    _zero_launches(fa)
+    got = grads(lambda *a: fa.flash_attention_bhsd(*a, True), (q, k, v),
+                (g,))
+    torch.cuda.synchronize()
+    row = dict(entry="flash_attention_bhsd", dtype="bf16", hd=ROUTE_VIEW_HD,
+               batch=0, launches=_read_launches(fa),
+               shapes=[tuple(x.shape) for x in got])
+    rows.append(row)
+    print(json.dumps({"route": row}), flush=True)
+    _check(not any(row["launches"].values()) and row["shapes"] == [
+        tuple(t.shape) for t in (q, q, k, v)],
+        f"an empty batch launched a kernel or lost its shape: {row}")
     return rows
 
 
@@ -1535,10 +1571,10 @@ TOL_SHARD_BYTES = 1e-2     # a rank's parameters + moments vs a quarter
 
 
 def _shard_reference(dev, path):
-    """The single-device run the shard phase is held to: "flash" on the
-    same seed, batch, lr and remat, 1 + SHARD_STEPS steps; the first step's
-    gradients and the parameters after it saved to ``path`` (nested host
-    copies). Returns the losses."""
+    """The single-device run the shard and pipe phases are held to:
+    "flash" on the same seed, batch, lr and remat, 1 + SHARD_STEPS steps;
+    the first step's gradients and the parameters after it saved to
+    ``path`` (nested host copies). Returns the losses."""
     import torch
 
     from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
@@ -1656,28 +1692,21 @@ def _shard_rank(dev, mesh, ref_path):
                 grad_errors=grad_errors)
 
 
-def phase_shard(dev):
+def phase_shard(dev, ref):
     """Sharded training on fsdp 2 x tp 2 (``SHARD_LABEL``): the flagship at
     full width and depth with "flash" and remat "dots" on b8 x 2048, each
     rank on its quarter of the parameters and moments, K1-K3 on its 4 of
     the 8 heads and 4 of the 8 rows; held to a single-device "flash" run
-    from the same seed on the same batch."""
-    import shutil
-    import tempfile
-
+    from the same seed on the same batch (``ref``: the path and losses of
+    ``_shard_reference``)."""
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel.mesh import tree_leaves
 
     cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_ref_")
-    try:
-        ref_path = os.path.join(tmp, "step1.pt")
-        ref_losses = _shard_reference(dev, ref_path)
-        t0 = time.monotonic()
-        per = _run_ranks(dev, "shard", SHARD_MESH, _shard_rank, ref_path)
-        wall_s = time.monotonic() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    ref_path, ref_losses = ref
+    t0 = time.monotonic()
+    per = _run_ranks(dev, "shard", SHARD_MESH, _shard_rank, ref_path)
+    wall_s = time.monotonic() - t0
     world = math.prod(SHARD_MESH.values())
     rows = TRAIN_BATCH // SHARD_MESH["fsdp"]
     tp = SHARD_MESH["tp"]
@@ -1732,6 +1761,173 @@ def phase_shard(dev):
         _check(abs(p["state_bytes"] / quarter - 1) <= TOL_SHARD_BYTES,
                f"rank {r} holds {p['state_bytes']} bytes of parameters and "
                f"moments, a quarter is {quarter}")
+    return out
+
+
+# GPipe over pp 4: the flagship's 16 layers in 4 stages of 4, 8 microbatches
+# of one sequence of the train batch, "flash" without remat; four processes
+# on the card over gloo, as in shard (NCCL refuses two ranks on one GPU), so
+# its times are time-slicing, not the pipeline's speed
+PIPE_MESH = dict(pp=4)
+PIPE_MICRO = 8
+PIPE_STEPS = 2             # timed, after one warm-up step
+PIPE_LABEL = "4 ranks time-sliced on one card, gloo through host"
+
+
+def _pipe_rank(dev, mesh, ref_path):
+    """One stage of the pp 4 mesh: the flagship's pipelined train step on
+    its 4 layers, one warm-up step (after which its gradients and
+    parameters are held to ``ref_path``'s layers [4s, 4s + 4), tok_emb,
+    norm and lm_head), then PIPE_STEPS timed steps, each with the launches
+    counted from zero, the (q, k, causal) of every attention call recorded
+    and the bytes this stage sends to its neighbours added up."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import pipeline as tpp
+    from ray_tpu_torch.parallel.mesh import AxisRing, axis_index, tree_map
+
+    shapes = set()
+
+    def recording(launch):
+        def wrapped(q, k, *args):
+            shapes.add((tuple(q.shape), tuple(k.shape), bool(args[-1])))
+            return launch(q, k, *args)
+        return wrapped
+
+    # the kernels' launchers (K1; K2 and K3), as _FlashAttn calls them
+    fa._flash_fwd_cuda = recording(fa._flash_fwd_cuda)
+    fa._flash_bwd_cuda = recording(fa._flash_bwd_cuda)
+    sent = dict(bytes=0)
+    exchange = AxisRing.exchange
+
+    def counted(ring, sends=(), *args, **kwargs):
+        sent["bytes"] += sum(t.numel() * t.element_size() for t in sends)
+        return exchange(ring, sends, *args, **kwargs)
+
+    AxisRing.exchange = counted
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = \
+        tpp.make_pipeline_train_step(cfg, mesh, PIPE_MICRO,
+                                     learning_rate=TRAIN_LR, device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _train_tokens(data_dev)
+    state, loss = train_step(state, tokens)  # warm-up
+    losses = [float(loss)]
+    params = state[0]
+    stage = axis_index(mesh, "pp")
+    per_stage = cfg.n_layers // PIPE_MESH["pp"]
+    ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                     weights_only=True)
+
+    def rel_err(got, want):
+        want = want.to(got.device)
+        return ((got - want).norm() / want.norm()).item()
+
+    def own(tree):
+        """The reference's leaves as this stage holds them."""
+        return dict(tree, layers={
+            k: w[stage * per_stage:(stage + 1) * per_stage][None]
+            for k, w in tree["layers"].items()})
+
+    leaf_errors = tree_map(lambda t, w: rel_err(t.detach(), w), params,
+                           own(ref["params"]))
+    grad_errors = tree_map(lambda t, w: rel_err(t.grad, w), params,
+                           own(ref["grads"]))
+    del ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    shapes.clear()
+    step_s, launches, step_bytes = [], [], []
+    for _ in range(PIPE_STEPS):
+        _zero_launches(fa)
+        sent["bytes"] = 0
+        t = time.monotonic()
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+        launches.append(_read_launches(fa))
+        step_bytes.append(sent["bytes"])
+    return dict(stage=stage, losses=losses, launches=launches,
+                shapes=sorted(shapes), step_s=step_s,
+                sent_bytes_per_step=step_bytes,
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                leaf_errors=leaf_errors, grad_errors=grad_errors)
+
+
+def phase_pipe(dev, ref):
+    """GPipe over pp 4 (``PIPE_LABEL``): the flagship at full width and
+    depth, "flash", no remat, 8 microbatches of one sequence of the b8 x
+    2048 train batch, each stage K1-K3 on its 4 layers at (1, 8, 4, 2048,
+    128), causal; held to the single-device "flash" run from the same seed
+    on the same batch (``ref``: the path and losses of
+    ``_shard_reference``)."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import tree_leaves
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    ref_path, ref_losses = ref
+    t0 = time.monotonic()
+    per = _run_ranks(dev, "pipe", PIPE_MESH, _pipe_rank, ref_path)
+    wall_s = time.monotonic() - t0
+    S, M = PIPE_MESH["pp"], PIPE_MICRO
+    mb = TRAIN_BATCH // M
+    b, h, kvh, s, hd = PIPE_SHAPE
+    want_shapes = [((b, h, s, hd), (b, kvh, s, hd), True)]
+    n = cfg.n_layers // S * M
+    want_launches = dict(k1=n, k2=n, k3=n, k4=0)
+    # an activation forward and its gradient back at each of the S - 1
+    # boundaries, for each microbatch, in bf16
+    want_bytes = 2 * (S - 1) * M * mb * TRAIN_SEQ * cfg.dim * 2
+    losses = per[0]["losses"]
+    out = dict(
+        config=dict(TRAIN_CFG, attention_impl="flash", remat=False,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                    mesh=PIPE_MESH, microbatches=M),
+        label=PIPE_LABEL, wall_s=wall_s, losses=losses,
+        flash_losses=ref_losses,
+        loss_abs_diff=[abs(a - b) for a, b in zip(losses, ref_losses)],
+        leaf_rel_err=[p["leaf_errors"] for p in per],
+        grad_rel_err=[p["grad_errors"] for p in per],
+        step_ms=[[t * 1e3 for t in p["step_s"]] for p in per],
+        peak_memory_gb=[p["peak_memory_gb"] for p in per],
+        handoff_bytes_per_step=[sum(p["sent_bytes_per_step"][i] for p in per)
+                                for i in range(PIPE_STEPS)],
+        handoff_bytes_expected=want_bytes,
+        bubble_share=(S - 1) / (M + S - 1),
+        launches_per_rank_step=[p["launches"] for p in per],
+        shapes=[p["shapes"] for p in per])
+    print(json.dumps({"pipe": out}), flush=True)
+    print(f"pipe train step (ms, each rank): {out['step_ms']}; peak memory a "
+          f"rank {[round(m, 2) for m in out['peak_memory_gb']]} GB; hand-off "
+          f"{out['handoff_bytes_per_step']} B a step; bubble "
+          f"{S - 1}/{M + S - 1} ({PIPE_LABEL})", flush=True)
+    _check([p["stage"] for p in per] == list(range(S)),
+           f"ranks hold stages {[p['stage'] for p in per]}")
+    _check(all(p["losses"] == losses for p in per),
+           f"the ranks disagree on the loss: {[p['losses'] for p in per]}")
+    _check(max(out["loss_abs_diff"]) <= TOL_SHARD_LOSS,
+           f"pp losses {losses} vs one device {ref_losses}: beyond "
+           f"{TOL_SHARD_LOSS}")
+    for r, p in enumerate(per):
+        _check(max(tree_leaves(p["leaf_errors"])) <= TOL_SHARD_PARAM,
+               f"rank {r}'s parameters after one step beyond ||err||/||ref|| "
+               f"{TOL_SHARD_PARAM}: {p['leaf_errors']}")
+        _check(max(tree_leaves(p["grad_errors"])) <= TOL_SHARD_GRAD,
+               f"rank {r}'s step-one gradients beyond ||err||/||ref|| "
+               f"{TOL_SHARD_GRAD}: {p['grad_errors']}")
+        for i, counts in enumerate(p["launches"]):
+            _check(counts == want_launches,
+                   f"rank {r} launched {counts} in step {i}, want "
+                   f"{want_launches}")
+        got_shapes = [(tuple(q), tuple(k), c) for q, k, c in p["shapes"]]
+        _check(got_shapes == want_shapes,
+               f"rank {r} ran attention at {p['shapes']}, want {want_shapes}")
+    _check(out["handoff_bytes_per_step"] == [want_bytes] * PIPE_STEPS,
+           f"hand-offs of {out['handoff_bytes_per_step']} B a step, want "
+           f"{want_bytes}")
     return out
 
 
@@ -2176,7 +2372,7 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring", "shard", "vit", "moe")
+          "ring", "shard", "pipe", "vit", "moe")
 
 
 def main(argv=None) -> int:
@@ -2234,9 +2430,19 @@ def main(argv=None) -> int:
     if "ring" in phases:
         torch.cuda.empty_cache()
         report["ring"] = phase_ring(dev)
-    if "shard" in phases:
+    if phases & {"shard", "pipe"}:
         torch.cuda.empty_cache()
-        report["shard"] = phase_shard(dev)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+        try:
+            ref_path = os.path.join(tmp, "step1.pt")
+            ref = (ref_path, _shard_reference(dev, ref_path))
+            if "shard" in phases:
+                report["shard"] = phase_shard(dev, ref)
+            if "pipe" in phases:
+                torch.cuda.empty_cache()
+                report["pipe"] = phase_pipe(dev, ref)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     if "vit" in phases:
         torch.cuda.empty_cache()
         report["vit"] = phase_vit(dev)

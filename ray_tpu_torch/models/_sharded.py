@@ -1,11 +1,17 @@
 """What the port's models (``llama.py``, ``vit.py``) share to run and train
-on a mesh: the meshes they take, the fsdp gather of a weight at use,
-attention where tp does not split the heads, the sums of the gradients by
-group, and AdamW as the JAX package's ``optax.adamw``."""
+on a mesh: the fsdp gather of a weight at use, attention where tp does not
+split the heads, the sums of the gradients by group, and AdamW as the JAX
+package's ``optax.adamw``.
+
+The models take every mesh, as in the JAX package: dp, fsdp, tp and sp
+split the work (a weight they do not split evenly is cut as GSPMD cuts it,
+``parallel/mesh.py::shard_of``), and pp, which no spec of the models
+names, is a replica axis: each pp slice holds the whole model under its
+own dp, fsdp and tp split, sees the same data and takes the same step, and
+nothing is summed over it. The pipeline schedule over pp is
+``parallel/pipeline.py``."""
 
 from __future__ import annotations
-
-from typing import Dict
 
 import torch
 
@@ -13,19 +19,6 @@ from ray_tpu_torch.parallel.mesh import (all_gather, all_reduce_sum,
                                         axis_index, block_range, copy_to,
                                         gather_from, mesh_shape, tree_leaves,
                                         tree_map)
-
-
-def check_mesh(mesh) -> Dict[str, int]:
-    """The mesh's axis sizes; raises on pp above 1 (a pipeline schedule,
-    not ported). Any dp, fsdp, tp and sp sizes run: a weight they do not
-    split evenly is cut as GSPMD cuts it (``parallel/mesh.py::shard_of``)."""
-    shape = mesh_shape(mesh)
-    if shape["pp"] > 1:
-        raise NotImplementedError(
-            f"a mesh with pp={shape['pp']} runs a pipeline schedule "
-            "(parallel/pipeline.py), not ported yet; dp, fsdp, tp and sp "
-            "are")
-    return shape
 
 
 def use(mesh, w, spec, size: int):

@@ -34,8 +34,9 @@ parallel, ``copy_to`` in front of each column-parallel product and
 the rank's own heads. An axis need not divide what it splits: the blocks
 are then GSPMD's (``parallel/mesh.py::block_range``), the gathers cut the
 padding off, and where tp does not split the heads every tp rank runs
-attention on all of them (``_sharded.heads_split``). pp (a pipeline
-schedule) is not ported and raises.
+attention on all of them (``_sharded.heads_split``). pp, which no spec
+names, is a replica axis here, as in JAX; ``parallel/pipeline.py`` lays
+the layers' stages over it.
 
 ``make_train_step`` is the training step: AdamW as optax's, on each rank's
 shards, the chunked loss, the remat modes as ``torch.utils.checkpoint``,
@@ -55,7 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models._sharded import (adamw, check_mesh, gather_heads,
+from ray_tpu_torch.models._sharded import (adamw, gather_heads,
                                           heads_split, own_columns,
                                           sum_gradients, use)
 from ray_tpu_torch.parallel.mesh import (P, all_gather, all_reduce_sum,
@@ -445,7 +446,6 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     if mesh is not None:
-        check_mesh(mesh)
         tokens = shard_of(tokens, data_spec(), mesh)
         positions = shard_of(positions, data_spec() if positions.dim() == 2
                              else P("sp"), mesh)
@@ -571,7 +571,6 @@ def compute_loss(cfg: LlamaConfig, params, tokens: torch.Tensor, remat=False,
     denom = (targets >= 0).float().sum()
     positions = torch.arange(s, device=tokens.device)
     if mesh is not None:
-        check_mesh(mesh)
         tokens, targets = (shard_of(t, data_spec(), mesh)
                            for t in (tokens, targets))
         positions = shard_of(positions, P("sp"), mesh)
@@ -606,11 +605,13 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
     of one device) or on a ``DeviceMesh`` with dp, fsdp, tp and sp axes
     (``MeshSpec(...).build()``, one process a position; every rank calls
     each function together; an axis need not divide the weights it
-    splits). pp above 1 raises ``NotImplementedError``. ``device`` defaults
-    to CUDA. State = (params, optimizer): this rank's blocks of the
-    parameters (``param_specs``) and AdamW as ``optax.adamw(learning_rate)``
-    on them, so the moments are sharded as their parameters are
-    (``gather_state`` gives the global parameters). ``remat`` selects the
+    splits). pp, which no spec names, is a replica axis, as in JAX: each
+    pp slice computes the same step (the pipeline over pp is
+    ``parallel/pipeline.py``). ``device`` defaults to CUDA. State =
+    (params, optimizer): this rank's blocks of the parameters
+    (``param_specs``) and AdamW as ``optax.adamw(learning_rate)`` on them,
+    so the moments are sharded as their parameters are (``gather_state``
+    gives the global parameters). ``remat`` selects the
     memory / FLOPs trade per layer, each a ``torch.utils.checkpoint``
     (non-reentrant):
       False  — save all layer activations
@@ -621,7 +622,7 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
                run again in the recompute, as under ``jax.checkpoint``
       True   — recompute the whole layer
     """
-    shape = check_mesh(mesh)
+    shape = mesh_shape(mesh)
     dev = resolve_device(device)
     specs = param_specs(cfg)
     sharded = shape["fsdp"] > 1 or shape["tp"] > 1

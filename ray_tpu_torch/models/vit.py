@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models._sharded import (adamw, check_mesh, gather_heads,
+from ray_tpu_torch.models._sharded import (adamw, gather_heads,
                                           heads_split, own_columns,
                                           sum_gradients, use)
 from ray_tpu_torch.parallel.mesh import (BATCH_AXES, P, copy_to, gather_from,
@@ -317,7 +317,6 @@ def forward(cfg: ViTConfig, params: Dict[str, Any], images: torch.Tensor,
     is this rank's block of the logits, rows [(dp_idx·fsdp + fsdp_idx)·
     b/(dp·fsdp), ...), every class on every tp rank."""
     if mesh is not None:
-        check_mesh(mesh)
         images = shard_of(images, IMAGE_SPEC, mesh)
     h = _backbone(cfg, mesh, params, images, partial(_layer, cfg, mesh))
     return _logits(cfg, mesh, params, h)
@@ -337,7 +336,6 @@ def compute_loss(cfg: ViTConfig, params, images: torch.Tensor,
         layer = partial(checkpoint, layer, use_reentrant=False,
                         preserve_rng_state=False)
     if mesh is not None:
-        check_mesh(mesh)
         images = shard_of(images, IMAGE_SPEC, mesh)
         labels = shard_of(labels, LABEL_SPEC, mesh)
     logits = _logits(cfg, mesh, params,
@@ -352,13 +350,13 @@ def make_train_step(cfg: ViTConfig, mesh=None, learning_rate: float = 1e-3,
     """Build (init_state, shard_state, train_step, data_device), as the
     port's ``models/llama.py::make_train_step``: on one device (``mesh``
     None) or on a ``DeviceMesh`` with dp, fsdp and tp axes (one process a
-    position; every rank calls each function together; pp above 1 raises
-    ``NotImplementedError``). State = (params, optimizer): this rank's
+    position; every rank calls each function together; pp, as in JAX, is
+    a replica axis). State = (params, optimizer): this rank's
     blocks of the parameters (``param_specs``) and AdamW as
     ``optax.adamw(learning_rate)`` on them. ``remat`` recomputes each layer
     in the backward (``jax.checkpoint``'s counterpart). ``device`` defaults
     to CUDA."""
-    shape = check_mesh(mesh)
+    shape = mesh_shape(mesh)
     dev = resolve_device(device)
     specs = param_specs(cfg)
     sharded = shape["fsdp"] > 1 or shape["tp"] > 1

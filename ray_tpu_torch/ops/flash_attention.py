@@ -192,8 +192,9 @@ def _supported_on_cuda(q, k, v, *more) -> bool:
     """The port's ``_supported_on_tpu``: CUDA inputs the kernels take
     (``_kernel_takes``; unlike the TPU predicate it takes head_dim 64 and
     any sequence length, a ragged 196 included). The rest take the plain
-    versions."""
-    return q.is_cuda and _kernel_takes(q, k, v, *more)
+    versions, and so does an empty q (no rows to launch a grid for: a
+    pipeline microbatch of which a data rank holds none)."""
+    return q.is_cuda and q.numel() > 0 and _kernel_takes(q, k, v, *more)
 
 
 def _kernel_input(t: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,16 @@ where GSPMD would insert them:
   axis needs whole, whose backward keeps this rank's slice: the gradient
   is already whole on each rank, so summing it would count it once a rank;
 * ``AllToAll`` — chunk j of the first dim to rank j, its own gradient
-  (Ulysses, the MoE exchange).
+  (Ulysses, the MoE exchange);
+* ``AxisRing`` — point-to-point transfers between neighbours of one axis
+  (JAX's ``ppermute``): ring attention's K/V rotation over sp, the
+  pipeline's stage hand-offs over pp.
+
+``ShardingRules`` and ``host_local_mesh_info`` are the JAX package's.
+``logical_to_sharding``, ``constrain`` and ``to_varying`` have no
+counterpart: a spec is placed by ``shard_of`` with no sharding object
+between, no compiler propagates a constraint (the models call the
+collectives themselves), and no ``shard_map`` marks values as varying.
 
 A gloo group's transport takes host memory only, so collectives on a gloo
 group stage CUDA tensors through the host (``stage``): that is how several
@@ -49,7 +58,7 @@ a host with several cards.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -122,6 +131,37 @@ class MeshSpec:
         """A sensible default: fill remaining devices with fsdp."""
         rest = n // (tp * sp)
         return cls(dp=1, fsdp=rest, tp=tp, sp=sp)
+
+
+@dataclass
+class ShardingRules:
+    """Logical name -> spec (``P``) table, the JAX package's: ``spec(name)``
+    is the named entry's spec, ``P()`` (whole on every rank) for a name
+    the table does not hold. JAX's ``sharding(mesh, name)`` (a
+    ``NamedSharding``) has no counterpart: ``shard_of`` takes the spec and
+    the mesh as they are."""
+
+    rules: Dict[str, tuple] = field(default_factory=dict)
+
+    def spec(self, name: str) -> tuple:
+        return self.rules.get(name, P())
+
+
+def host_local_mesh_info(mesh) -> dict:
+    """Which mesh coordinates this process holds, with the JAX package's
+    keys: ``process_index`` (this process's rank in the default group),
+    ``process_count`` (the group's size) and ``local_coords`` (the mesh
+    coordinates, in ``AXES`` order, of the devices it drives). A process of
+    the port is one mesh position, so ``local_coords`` holds one coordinate
+    and ``process_count`` is the mesh's size; in JAX one process drives
+    every device of its host (8 CPU devices in the tests: one process, 8
+    coordinates)."""
+    return {
+        "process_index": dist.get_rank() if dist.is_initialized() else 0,
+        "process_count": (dist.get_world_size() if dist.is_initialized()
+                          else 1),
+        "local_coords": [tuple(int(i) for i in mesh.get_coordinate())],
+    }
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -286,6 +326,66 @@ def to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     and in host memory when staged."""
     t = t.contiguous()
     return t.cpu() if staged else t
+
+
+class AxisRing:
+    """The ranks of the mesh's ``axis`` as a ring, in axis order: this
+    rank's index on it and the transfer of tensors between neighbours
+    (JAX's ``ppermute`` over the axis). Ring attention rotates K/V one step
+    around it (``start``); the pipeline hands activations to the next
+    stage and gradients to the previous one (``exchange``, either way
+    alone)."""
+
+    def __init__(self, mesh, axis: str):
+        self.group = mesh.get_group(axis)
+        self.size = mesh_shape(mesh)[axis]
+        self.idx = axis_index(mesh, axis)
+        # global ranks of the axis's positions, in axis order
+        self.ranks = dist.get_process_group_ranks(self.group)
+        self.staged = stage(self.group)
+
+    def start(self, *tensors, tag: int = 0) -> "Transfer":
+        """Post the sends of ``tensors`` to the next rank and the receives
+        of the previous rank's, of the same shapes (tags from ``tag`` up,
+        so two transfers may be in flight); ``wait()`` on the result
+        returns them."""
+        return self.exchange(tensors, [(t.shape, t.dtype, t.device)
+                                       for t in tensors], tag=tag)
+
+    def exchange(self, sends=(), recvs=(), step: int = 1,
+                 tag: int = 0) -> "Transfer":
+        """Post the sends of the tensors ``sends`` to the rank ``step``
+        places on along the axis, and receives of tensors of
+        ``recvs``' (shape, dtype, device) from the rank ``step`` places
+        back (tags from ``tag`` up); ``wait()`` on the result returns the
+        received tensors, each on its device. Either list may be empty;
+        each pair of ranks must post their sends and receives in one
+        order."""
+        to = self.ranks[(self.idx + step) % self.size]
+        frm = self.ranks[(self.idx - step) % self.size]
+        sends = [to_wire(t, self.staged) for t in sends]
+        bufs = [torch.empty(shape, dtype=dtype,
+                            device="cpu" if self.staged else device)
+                for shape, dtype, device in recvs]
+        ops = [dist.P2POp(dist.isend, t, to, self.group, tag=tag + n)
+               for n, t in enumerate(sends)]
+        ops += [dist.P2POp(dist.irecv, t, frm, self.group, tag=tag + n)
+                for n, t in enumerate(bufs)]
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return Transfer(works, sends, bufs, [d for _, _, d in recvs])
+
+
+class Transfer:
+    """Posted sends and receives; the send buffers live until ``wait``."""
+
+    def __init__(self, works, sends, recvs, devices):
+        self.works, self.sends, self.recvs = works, sends, recvs
+        self.devices = devices
+
+    def wait(self) -> tuple:
+        for w in self.works:
+            w.wait()
+        return tuple(t.to(d) for t, d in zip(self.recvs, self.devices))
 
 
 def _gather(x: torch.Tensor, group, dim: int, lengths=None) -> torch.Tensor:

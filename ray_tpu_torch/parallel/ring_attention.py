@@ -5,9 +5,8 @@ The sequence is sharded over sp: each rank holds a contiguous block of
 s/sp positions of q, k and v. Each step every rank computes blockwise
 attention of its local queries against the resident K/V block with an
 online-softmax accumulator (running max, running denominator), then passes
-K/V to its ring neighbour with ``torch.distributed.batch_isend_irecv``
-(rank idx sends to idx+1 and receives from idx-1, JAX's ``ppermute``
-ring). The next block's transfer is posted before the hop's compute and
+K/V to its ring neighbour (``parallel/mesh.py::AxisRing``: rank idx
+sends to idx+1 and receives from idx-1, JAX's ``ppermute`` ring). The next block's transfer is posted before the hop's compute and
 awaited after it, so the transfer runs while the hop computes.
 
 Each hop is classified by ring offset (``_dispatch_hop``):
@@ -32,16 +31,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from ray_tpu_torch.ops.flash_attention import flash_chunk_bhsd, flash_hop_bwd
-from ray_tpu_torch.parallel.mesh import axis_index, mesh_shape, stage, to_wire
+from ray_tpu_torch.parallel.mesh import AxisRing
 
 FULL, DIAG, SKIP = 0, 1, 2
-
-
-def _ring_perm(sp_size):
-    return [(j, (j + 1) % sp_size) for j in range(sp_size)]
 
 
 def _dispatch_hop(causal: bool, idx: int, i: int, sp_size: int) -> int:
@@ -55,49 +49,7 @@ def _dispatch_hop(causal: bool, idx: int, i: int, sp_size: int) -> int:
     return 2 - (src <= idx) - (src < idx)
 
 
-class _Ring:
-    """The sp axis of a mesh as a ring: this rank's index, its neighbours'
-    global ranks, and the transfer of blocks one step around it."""
-
-    def __init__(self, mesh):
-        self.group = mesh.get_group("sp")
-        self.size = mesh_shape(mesh)["sp"]
-        self.idx = axis_index(mesh, "sp")
-        # global ranks of the neighbours in the sp group's ring
-        ranks = dist.get_process_group_ranks(self.group)
-        perm = _ring_perm(self.size)
-        self.next = ranks[dict(perm)[self.idx]]
-        self.prev = ranks[next(j for j, d in perm if d == self.idx)]
-        self.staged = stage(self.group)
-
-    def start(self, *tensors, tag: int = 0) -> "_Transfer":
-        """Post the sends of ``tensors`` to the next rank and the receives
-        of the previous rank's (tags from ``tag`` up, so two transfers may
-        be in flight); ``wait()`` on the result returns them."""
-        sends = [to_wire(t, self.staged) for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = [dist.P2POp(dist.isend, t, self.next, self.group, tag=tag + n)
-               for n, t in enumerate(sends)]
-        ops += [dist.P2POp(dist.irecv, t, self.prev, self.group, tag=tag + n)
-                for n, t in enumerate(recvs)]
-        return _Transfer(dist.batch_isend_irecv(ops), sends, recvs,
-                         [t.device for t in tensors])
-
-
-class _Transfer:
-    """One posted ring transfer; the send buffers live until ``wait``."""
-
-    def __init__(self, works, sends, recvs, devices):
-        self.works, self.sends, self.recvs = works, sends, recvs
-        self.devices = devices
-
-    def wait(self):
-        for w in self.works:
-            w.wait()
-        return tuple(t.to(d) for t, d in zip(self.recvs, self.devices))
-
-
-def _ring_fwd_impl(q, k, v, ring: _Ring, causal: bool):
+def _ring_fwd_impl(q, k, v, ring: AxisRing, causal: bool):
     """Forward ring loop. q: (b, h, sq, hd); k/v: (b, kvh, sk, hd) local
     shards. Returns (out, lse), lse (b, h, sq, 1) fp32."""
     b, h, sq, hd = q.shape
@@ -168,7 +120,7 @@ def ring_attention_sharded(q, k, v, mesh, causal: bool = True):
     # bhsd layout into the kernels
     out = _RingCore.apply(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), _Ring(mesh), causal)
+        v.transpose(1, 2).contiguous(), AxisRing(mesh, "sp"), causal)
     return out.transpose(1, 2)
 
 

@@ -1,6 +1,7 @@
 """One gloo process group of rank processes for the multi-rank parity tests
 (``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
-``test_torch_model_parallel.py``).
+``test_torch_model_parallel.py``, ``test_torch_vit.py``,
+``test_torch_moe.py``, ``test_torch_pipeline.py``).
 
 ``_port_side`` (in the child that ``_port_proc.spawn`` starts) creates a
 ``Ranks`` once per test module; its processes join one gloo group through
@@ -127,16 +128,23 @@ def ready():
     return True
 
 
-def _mesh(dp, sp, fsdp=1, tp=1):
-    """The (dp, fsdp, tp, sp) mesh over the whole group, built once
+def _mesh(dp, sp, fsdp=1, tp=1, pp=1):
+    """The (pp, dp, fsdp, tp, sp) mesh over the whole group, built once
     (building one creates process groups: every rank builds them in the
     same order)."""
     from ray_tpu_torch.parallel.mesh import MeshSpec
 
-    key = (dp, fsdp, tp, sp)
+    key = (pp, dp, fsdp, tp, sp)
     if key not in _MESHES:
-        _MESHES[key] = MeshSpec(dp=dp, fsdp=fsdp, tp=tp, sp=sp).build()
+        _MESHES[key] = MeshSpec(pp=pp, dp=dp, fsdp=fsdp, tp=tp,
+                                sp=sp).build()
     return _MESHES[key]
+
+
+def _axes_mesh(axes):
+    """``_mesh`` of a dict of axis sizes (absent axes 1)."""
+    return _mesh(axes.get("dp", 1), axes.get("sp", 1), axes.get("fsdp", 1),
+                 axes.get("tp", 1), axes.get("pp", 1))
 
 
 def _cfg(shape, impl):
@@ -195,9 +203,9 @@ def sharded_attention(impl, sp, q, k, v, g, causal=True):
     return tuple(_np(t) for t in (out, qs.grad, ks.grad, vs.grad))
 
 
-def forward(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1):
-    """This rank's logits block of ``forward`` on the (dp, fsdp, tp, sp)
-    mesh from its blocks of the carried weights, and the block's (row,
+def forward(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1, pp=1):
+    """This rank's logits block of ``forward`` on the (pp, dp, fsdp, tp,
+    sp) mesh from its blocks of the carried weights, and the block's (row,
     column) offsets in the global logits."""
     import torch
 
@@ -205,7 +213,7 @@ def forward(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1):
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.parallel.mesh import axis_index
 
-    mesh = _mesh(dp, sp, fsdp, tp)
+    mesh = _mesh(dp, sp, fsdp, tp, pp)
     cfg = _cfg(shape, impl)
     params = tl.shard_params(cfg, params_from_jax(tree, "cpu"), mesh)
     with torch.no_grad():
@@ -234,9 +242,10 @@ def loss(shape, tree, tokens, impl, dp, sp, fsdp=1, tp=1):
 
 
 def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr, dp, sp,
-          fsdp=1, tp=1, with_grads=False):
-    """Losses of ``steps`` steps of ``make_train_step`` on the (dp, fsdp,
-    tp, sp) mesh from the carried weights, and the launch counters; rank 0
+          fsdp=1, tp=1, with_grads=False, pp=1):
+    """Losses of ``steps`` steps of ``make_train_step`` on the (pp, dp,
+    fsdp, tp, sp) mesh from the carried weights, and the launch counters;
+    rank 0
     also returns the global parameters after them and, ``with_grads``, the
     global gradients of the first step (nested numpy; ``gather_state`` and
     ``gather_full``, which every rank runs)."""
@@ -248,7 +257,7 @@ def train(shape, tree, tokens, impl, remat, loss_chunk, steps, lr, dp, sp,
     from ray_tpu_torch.parallel.mesh import gather_full, tree_map
 
     cfg = _cfg(shape, impl)
-    mesh = _mesh(dp, sp, fsdp, tp)
+    mesh = _mesh(dp, sp, fsdp, tp, pp)
     init_state, shard_state, train_step, dev = tl.make_train_step(
         cfg, mesh, learning_rate=lr, remat=remat, loss_chunk=loss_chunk,
         device="cpu")
@@ -336,17 +345,17 @@ def _vit_cfg(shape, impl):
                      attention_impl=impl, **shape)
 
 
-def vit_forward(shape, tree, images, impl, dp, fsdp, tp):
-    """This rank's logits block of the ViT ``forward`` on the (dp, fsdp,
-    tp) mesh from its blocks of the carried weights, and the block's row
-    offset."""
+def vit_forward(shape, tree, images, impl, dp, fsdp, tp, pp=1):
+    """This rank's logits block of the ViT ``forward`` on the (pp, dp,
+    fsdp, tp) mesh from its blocks of the carried weights, and the block's
+    row offset."""
     import torch
 
     from ray_tpu_torch.models import vit as tv
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.parallel.mesh import axis_index
 
-    mesh = _mesh(dp, 1, fsdp, tp)
+    mesh = _mesh(dp, 1, fsdp, tp, pp)
     cfg = _vit_cfg(shape, impl)
     params = tv.shard_params(cfg, params_from_jax(tree, "cpu"), mesh)
     with torch.no_grad():
@@ -355,10 +364,12 @@ def vit_forward(shape, tree, images, impl, dp, fsdp, tp):
     return _np(logits), row * images.shape[0] // (dp * fsdp)
 
 
-def vit_train(shape, tree, images, labels, impl, steps, lr, dp, fsdp, tp):
-    """Losses of ``steps`` steps of the ViT ``make_train_step`` on the (dp,
-    fsdp, tp) mesh, from the carried weights (or from seed 0 where ``tree``
-    is None); rank 0 also returns the gathered parameters after them."""
+def vit_train(shape, tree, images, labels, impl, steps, lr, dp, fsdp, tp,
+              pp=1):
+    """Losses of ``steps`` steps of the ViT ``make_train_step`` on the (pp,
+    dp, fsdp, tp) mesh, from the carried weights (or from seed 0 where
+    ``tree`` is None); rank 0 also returns the gathered parameters after
+    them."""
     import torch
     import torch.distributed as dist
 
@@ -367,7 +378,7 @@ def vit_train(shape, tree, images, labels, impl, steps, lr, dp, fsdp, tp):
     from ray_tpu_torch.parallel.mesh import tree_map
 
     cfg = _vit_cfg(shape, impl)
-    mesh = _mesh(dp, 1, fsdp, tp)
+    mesh = _mesh(dp, 1, fsdp, tp, pp)
     init_state, shard_state, train_step, dev = tv.make_train_step(
         cfg, mesh, learning_rate=lr, device="cpu")
     state = shard_state(init_state(
@@ -408,3 +419,87 @@ def moe_ep(tree, x, dp, fsdp, tp, top_k, capacity_factor, aux_weight=0.0):
     row = axis_index(mesh, "dp") * y.shape[0]
     return (_np(y), row, float(aux),
             grads if dist.get_rank() == 0 else None)
+
+
+def pipeline_train(shape, tree, tokens, impl, axes, n_micro, steps, lr,
+                   remat=False):
+    """``steps`` steps of ``make_pipeline_train_step`` on the mesh of axis
+    sizes ``axes`` with ``n_micro`` microbatches from the carried
+    (layer-stacked) weights: every rank's losses and launch counters; rank
+    0 also returns the gathered stage-stacked parameters after them, the
+    gathered gradients of the first step, and the losses, parameters and
+    first-step gradients of the port's single-stage ``make_train_step``
+    (one device, no mesh) on the same weights and batch."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel import pipeline as tpp
+    from ray_tpu_torch.parallel.mesh import gather_full, tree_map
+
+    cfg = _cfg(shape, impl)
+    mesh = _axes_mesh(axes)
+    specs = tpp.pipeline_param_specs(cfg)
+    init_state, shard_state, train_step, dev = tpp.make_pipeline_train_step(
+        cfg, mesh, n_micro, learning_rate=lr, remat=remat, device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    toks = torch.from_numpy(tokens).to(dev)
+    before = launches()
+    losses, grads = [], None
+    for _ in range(steps):
+        state, loss = train_step(state, toks)
+        losses.append(float(loss))
+        if grads is None:
+            grads = tree_map(lambda t, spec: _np(gather_full(t.grad, spec,
+                                                             mesh)),
+                             state[0], specs)
+    counts = tuple(a - b for a, b in zip(launches(), before))
+    params = tree_map(lambda t, spec: _np(gather_full(t.detach(), spec,
+                                                      mesh)),
+                      state[0], specs)
+    if dist.get_rank() != 0:
+        return losses, counts, None
+    init_one, _, step_one, _ = tl.make_train_step(
+        cfg, learning_rate=lr, loss_chunk=0, device="cpu")
+    one = init_one(params_from_jax(tree, "cpu"))
+    one_losses, one_grads = [], None
+    for _ in range(steps):
+        one, loss = step_one(one, toks)
+        one_losses.append(float(loss))
+        if one_grads is None:
+            one_grads = tree_map(lambda t: _np(t.grad), one[0])
+    single = (one_losses, tree_map(lambda t: _np(t.detach()), one[0]),
+              one_grads)
+    return losses, counts, (params, grads, single)
+
+
+def pipeline_refuses_batch(shape, axes, n_micro, tokens):
+    """The error a pipeline train step raises on ``tokens`` whose batch
+    ``n_micro`` does not divide, as (type name, text); None if it
+    runs."""
+    import torch
+
+    from ray_tpu_torch.parallel import pipeline as tpp
+
+    cfg = _cfg(shape, "xla")
+    init_state, _, train_step, _ = tpp.make_pipeline_train_step(
+        cfg, _axes_mesh(axes), n_micro, device="cpu")
+    try:
+        train_step(init_state(0), torch.from_numpy(tokens))
+    except AssertionError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def mesh_info(axes):
+    """``host_local_mesh_info`` of the mesh of axis sizes ``axes`` on this
+    rank, with the rank and its coordinates by ``axis_index``."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import (AXES, axis_index,
+                                            host_local_mesh_info)
+
+    mesh = _axes_mesh(axes)
+    return dict(host_local_mesh_info(mesh), rank=dist.get_rank(),
+                coords=tuple(axis_index(mesh, a) for a in AXES))

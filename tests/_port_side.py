@@ -509,6 +509,43 @@ def train_step_mesh(shape, axes, impl="ring"):
     return None
 
 
+def pipeline_refusal(shape, impl, axes, n_micro=2):
+    """The error ``make_pipeline_train_step`` raises on a mesh of axis
+    sizes ``axes``, as (type name, text), or None if it accepts it."""
+    from ray_tpu_torch.parallel.pipeline import make_pipeline_train_step
+
+    try:
+        make_pipeline_train_step(_cfg(shape, attention_impl=impl),
+                                 _Mesh(axes), n_micro, device="cpu")
+    except AssertionError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def stack_roundtrip(tree, n_stages):
+    """``stack_stages`` of ``tree`` and ``unstack_stages`` of that."""
+    from ray_tpu_torch.parallel.pipeline import stack_stages, unstack_stages
+
+    stacked = stack_stages(tree_map(_T, tree), n_stages)
+    return tree_map(_np, stacked), tree_map(_np, unstack_stages(stacked))
+
+
+def sharding_rules(rules, names):
+    """``ShardingRules(rules).spec(name)`` of each of ``names``."""
+    from ray_tpu_torch.parallel.mesh import ShardingRules
+
+    table = ShardingRules(rules)
+    return [table.spec(name) for name in names]
+
+
+def pipeline_cuda_default_errors(shape):
+    """``cuda_default_errors`` for ``make_pipeline_train_step``."""
+    from ray_tpu_torch.parallel.pipeline import make_pipeline_train_step
+
+    return _errors({"make_pipeline_train_step": lambda:
+                    make_pipeline_train_step(_cfg(shape), None, 2)[0](0)})
+
+
 def param_specs(shape):
     """``param_specs``: nested dicts of tuples."""
     return tl.param_specs(_cfg(shape))

@@ -15,6 +15,8 @@ normalisation hides that from the losses for a step or two). Last, meshes
 whose axes do not divide what they split (3 kv heads over tp 2, ffn 250
 and vocab 510 over tp 4, vocab 510 over fsdp 4, dim 100 over fsdp 8):
 ``forward`` and 3 steps against JAX's program on the same mesh shape.
+And pp 2 x dp 2 x tp 2, where pp is a replica axis as in JAX: ``forward``
+and 3 steps against JAX's.
 
 All fp32 on the CPU, on ``tiny``'s widths with 8 query and 4 kv heads, so
 that Ulysses can split them. The port runs in a spawned child
@@ -63,8 +65,8 @@ def _jcfg(**kw):
                           **SHAPE, **kw)
 
 
-def _jmesh(dp=1, fsdp=1, tp=1, sp=1):
-    return MeshSpec(dp=dp, fsdp=fsdp, tp=tp, sp=sp).build(
+def _jmesh(dp=1, fsdp=1, tp=1, sp=1, pp=1):
+    return MeshSpec(dp=dp, fsdp=fsdp, tp=tp, sp=sp, pp=pp).build(
         jax.devices()[:WORLD])
 
 
@@ -218,6 +220,59 @@ def test_train_step_on_dp2_fsdp2_tp2_matches_jax(port, weights, remat,
         assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIER_FRAC, (
             key, np.sort(diff.ravel())[-5:])
         assert diff.max() <= LR * STEPS, (key, diff.max())
+    for key, g, w in _pairs(got_grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_ATOL,
+                                   err_msg=key)
+
+
+PP_STEPS = 3
+
+
+def test_pp_mesh_is_a_replica_axis_as_in_jax(port, weights):
+    """pp 2 x dp 2 x tp 2 ("flash"): pp, which no spec names, is a
+    replica axis in JAX, each pp slice computing the whole model on the
+    same data. Each rank's ``forward`` block against its slice of JAX's
+    on the same mesh shape (both pp slices hold the same blocks), then 3
+    ``make_train_step`` steps against JAX's: every rank's losses, the
+    gathered parameters after them and the first step's gathered
+    gradients (a gradient summed over pp would be doubled), at
+    ``test_train_step_on_dp2_fsdp2_tp2_matches_jax``'s tolerances."""
+    jp, tree = weights
+    toks = _tokens(8, 32, seed=13)
+    mesh = _jmesh(pp=2, dp=2, tp=2)
+    cfg = _jcfg(attention_impl="flash")
+    params = _sharded(jp, cfg, mesh)
+    t = jax.device_put(jnp.asarray(toks), NamedSharding(mesh, data_spec()))
+    want_logits = np.asarray(jax.jit(
+        lambda p, x: jl.forward(cfg, p, x, mesh))(params, t))
+    seen = np.zeros(toks.shape, int)
+    for logits, r0, c0 in port("sp_call", "forward", SHAPE, tree, toks,
+                               "flash", 2, 1, 1, 2, pp=2):
+        assert logits.shape == (4, 32, SHAPE["vocab_size"])
+        np.testing.assert_allclose(logits, want_logits[r0:r0 + 4],
+                                   rtol=2e-4, atol=2e-4)
+        seen[r0:r0 + 4] += 1
+    assert (seen == 4).all()  # pp 2 x tp 2 ranks share each block
+    want_grads = jax.tree.map(np.asarray, jax.jit(jax.grad(
+        lambda p, x: jl.loss_fn(cfg, p, x, mesh)))(params, t))
+    init_state, shard_state, train_step, _ = jl.make_train_step(
+        cfg, mesh, learning_rate=LR, loss_chunk=0)
+    state = shard_state((params, init_state(jax.random.key(0))[1]))
+    want = []
+    for _ in range(PP_STEPS):
+        state, loss = train_step(state, t)
+        want.append(float(loss))
+    results = port("sp_call", "train", SHAPE, tree, toks, "flash", False, 0,
+                   PP_STEPS, LR, 2, 1, 1, 2, with_grads=True, pp=2)
+    for losses, _, launches, _ in results:
+        np.testing.assert_allclose(losses, want, rtol=1e-4)
+        assert launches == (0, 0, 0, 0)
+    got_params, got_grads = results[0][1], results[0][3]
+    for key, g, w in _pairs(got_params, jax.tree.map(np.asarray, state[0])):
+        diff = np.abs(g - w)
+        assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIER_FRAC, (
+            key, np.sort(diff.ravel())[-5:])
+        assert diff.max() <= LR * PP_STEPS, (key, diff.max())
     for key, g, w in _pairs(got_grads, want_grads):
         np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_ATOL,
                                    err_msg=key)

@@ -108,15 +108,15 @@ def test_adamw_matches_optax(port):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-6)
 
 
-def test_train_step_refuses_a_multi_device_mesh(port):
-    """Of the multi-device meshes only one with pp above 1 (a pipeline
-    schedule, not ported) is refused: it raises NotImplementedError naming
-    the pipeline. fsdp, tp and dp x fsdp x tp meshes
-    (``test_torch_model_parallel.py``), dp x sp meshes
-    (``test_torch_sequence_parallel.py``) and a mesh of one device are
-    accepted."""
-    kind, text = port("train_step_mesh", SHAPE, {"pp": 2})
-    assert kind == "NotImplementedError" and "pipeline" in text, text
-    for axes in ({}, {"dp": 2}, {"sp": 4}, {"dp": 2, "sp": 2}, {"fsdp": 2},
-                 {"tp": 2}, {"dp": 2, "fsdp": 2, "tp": 2}):
+def test_train_step_takes_every_mesh(port):
+    """``make_train_step`` accepts every mesh JAX's does: pp, which no spec
+    names, is a replica axis there as in JAX (the pipeline schedule over
+    it is ``parallel/pipeline.py``, ``test_torch_pipeline.py``); fsdp, tp
+    and dp x fsdp x tp meshes (``test_torch_model_parallel.py``), dp x sp
+    meshes (``test_torch_sequence_parallel.py``) and a mesh of one device
+    as before. A pp mesh's results are held to JAX's in
+    ``test_torch_model_parallel.py``."""
+    for axes in ({}, {"pp": 2}, {"pp": 2, "tp": 2}, {"dp": 2}, {"sp": 4},
+                 {"dp": 2, "sp": 2}, {"fsdp": 2}, {"tp": 2},
+                 {"dp": 2, "fsdp": 2, "tp": 2}):
         assert port("train_step_mesh", SHAPE, axes) is None, axes

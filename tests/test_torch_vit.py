@@ -5,7 +5,8 @@ vit``) with the JAX package's.
 parameter count, a sharded step that learns, flash against xla), then the
 port against JAX on the same numpy inputs: the tiny config's ``forward``,
 5 ``make_train_step`` steps on one device and on dp 2 x fsdp 2 x tp 2, one
-mesh whose tp splits a head (6 heads over tp 4, 10 classes over tp 4), and
+mesh whose tp splits a head (6 heads over tp 4, 10 classes over tp 4),
+one with pp 2 as a replica axis (pp 2 x dp 2 x fsdp 2), and
 ``params_from_jax``. fp32 on the CPU; the weights are JAX's with a nonzero
 head (JAX's initial head is zero, so a first step would move the head
 alone). The port runs in a spawned child (``_port_proc``) leading 8 gloo
@@ -66,9 +67,10 @@ def _batch(shape=TINY, seed=2):
     return images, labels
 
 
-def _jmesh(dp=1, fsdp=1, tp=1):
-    n = dp * fsdp * tp
-    return MeshSpec(dp=dp, fsdp=fsdp, tp=tp).build(jax.devices()[:n])
+def _jmesh(dp=1, fsdp=1, tp=1, pp=1):
+    n = pp * dp * fsdp * tp
+    return MeshSpec(dp=dp, fsdp=fsdp, tp=tp, pp=pp).build(
+        jax.devices()[:n])
 
 
 def _jax_steps(cfg, mesh, jp, images, labels, steps, place):
@@ -184,17 +186,20 @@ def test_train_step_matches_jax(port):
 @pytest.mark.parametrize("axes,shape", [
     (dict(dp=2, fsdp=2, tp=2), TINY),
     (dict(dp=2, tp=4), UNEVEN),
-], ids=["dp2_fsdp2_tp2", "dp2_tp4_6heads"])
+    (dict(pp=2, dp=2, fsdp=2), TINY),
+], ids=["dp2_fsdp2_tp2", "dp2_tp4_6heads", "pp2_dp2_fsdp2"])
 def test_sharded_forward_and_train_step_match_jax(port, axes, shape):
     """On an 8-rank mesh: each rank's logits block against its rows of
     JAX's sharded ``forward``, then 5 steps ("flash") against JAX's
     ``make_train_step`` on the same mesh shape: every rank's losses within
     1e-5, the gathered leaves within 1e-4. On dp 2 x tp 4 the 6 heads do
-    not split over tp, so every tp rank runs attention on all of them."""
+    not split over tp, so every tp rank runs attention on all of them. On
+    pp 2 x dp 2 x fsdp 2 pp is a replica axis, as in JAX: each pp slice
+    computes the whole model on the same images."""
     jp, tree = _weights(shape)
     images, labels = _batch(shape, seed=3)
     mesh = _jmesh(**axes)
-    dp, fsdp, tp = (axes.get(a, 1) for a in ("dp", "fsdp", "tp"))
+    dp, fsdp, tp, pp = (axes.get(a, 1) for a in ("dp", "fsdp", "tp", "pp"))
     cfg = _jcfg(shape, impl="flash")
     even = shape is TINY
     placed = jax.tree.map(jax.device_put, jp, logical_to_sharding(
@@ -204,7 +209,7 @@ def test_sharded_forward_and_train_step_match_jax(port, axes, shape):
     want_logits = np.asarray(jax.jit(
         lambda p, x: jv.forward(cfg, p, x, mesh))(placed, x))
     for logits, r0 in port("sp_call", "vit_forward", shape, tree, images,
-                           "flash", dp, fsdp, tp):
+                           "flash", dp, fsdp, tp, pp=pp):
         rows = BATCH // (dp * fsdp)
         assert logits.shape == (rows, shape["num_classes"])
         np.testing.assert_allclose(logits, want_logits[r0:r0 + rows],
@@ -212,7 +217,7 @@ def test_sharded_forward_and_train_step_match_jax(port, axes, shape):
     want, want_params = _jax_steps(cfg, mesh, jp, images, labels, STEPS,
                                    place=even)
     results = port("sp_call", "vit_train", shape, tree, images, labels,
-                   "flash", STEPS, LR, dp, fsdp, tp)
+                   "flash", STEPS, LR, dp, fsdp, tp, pp=pp)
     for losses, _ in results:
         np.testing.assert_allclose(losses, want, rtol=0, atol=1e-5)
     _hold_leaves(results[0][1], want_params)
