@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs thirteen phases and fails (exit 1) if any check fails:
+runs fifteen phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -96,6 +96,29 @@ runs thirteen phases and fails (exit 1) if any check fails:
             its outputs and router / w_in / w_out gradients against the
             single shard's. ms a call, tokens/s, the exchange's bytes; the
             plain products run no kernel of the port.
+* ckpt    — checkpoints (``ray_tpu_torch.train``) of the shard phase's
+            state, four processes on the card over gloo: each rank takes
+            step 1, saves its train state in the JAX package's layout
+            through ``AsyncCheckpointWriter`` into a ``CheckpointManager``
+            staging dir (rank 0 finalizes with 4 ranks) and takes step 2
+            while the write runs. Same-world restore: each rank restores
+            into a fresh state (``load_state``), every block, moment and
+            the count bitwise as saved, and its step 2 within 1e-6 of the
+            uninterrupted one. Cross-world restore: a process of its own
+            restores the 4 rank files into one device
+            (``load_consolidated``) and takes step 2, within the shard
+            phase's tolerances of the sharded loss and parameters. K1/K2/K3
+            32/16/16 on each restored step. Bytes a rank and in all, the
+            seconds ``save`` blocks, the write's and both restores' seconds
+            and GB/s, the consolidating process's peak host memory.
+* rl      — the rllib learners (PPO, IMPALA's V-trace, APPO, DQN, SAC, BC
+            discrete and continuous, CQL) at their default widths on a
+            seeded batch (4096 rows for PPO, minibatch 128, 4 epochs; 256
+            for the others): 20 updates on the card against the same
+            learner on the CPU from the same weights, batches and (SAC)
+            noise, every metric and final parameter within 1e-4; ms an
+            update. Their products are PyTorch's own: the JAX package has
+            no kernel for them.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2293,6 +2316,432 @@ def phase_moe(dev):
     return out
 
 
+# Checkpoints of the shard phase's state (train/_checkpoint.py): the
+# flagship on fsdp 2 x tp 2, four processes on the card over gloo, as in
+# shard; the write runs on a background thread while the next step runs
+CKPT_MESH = SHARD_MESH
+CKPT_LABEL = "4 ranks time-sliced on one card, gloo through host"
+TOL_CKPT_LOSS_REL = 1e-6   # same-world step-2 loss against the uninterrupted
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a train-state tree's tensors: what a snapshot copies."""
+    import torch
+
+    from ray_tpu_torch.train._checkpoint import _flatten_with_paths
+
+    return sum(t.numel() * t.element_size()
+               for t in _flatten_with_paths(tree).values()
+               if torch.is_tensor(t))
+
+
+def _ckpt_rank(dev, mesh, root, ref_path):
+    """One rank of the fsdp 2 x tp 2 mesh: the flagship's step 1, a save of
+    its train state (``AsyncCheckpointWriter`` into the staging dir of a
+    ``CheckpointManager``, rank 0 finalizing with 4 ranks) and step 2
+    while the write runs; then a same-world restore (``load_state``) into
+    a fresh state (``init_state(SEED + 1)``), held bitwise to what was
+    saved, and step 2 from it with the launches counted from zero. Rank 0
+    saves the gathered parameters after the uninterrupted step 2 to
+    ``ref_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import (LlamaConfig, gather_state,
+                                            make_train_step, param_specs)
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import tree_map
+    from ray_tpu_torch.train import (AsyncCheckpointWriter, Checkpoint,
+                                     CheckpointManager, load_train_state,
+                                     train_state_specs, train_state_tree)
+    from ray_tpu_torch.train._checkpoint import _flatten_with_paths
+
+    rank = dist.get_rank()
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    specs = train_state_specs(param_specs(cfg))
+    tokens = _train_tokens(data_dev)
+    state = shard_state(init_state(SEED))
+    state, loss = train_step(state, tokens)
+    losses = [float(loss)]
+    tree = train_state_tree(*state)
+    nbytes = _tree_bytes(tree)
+    # what the save must write, kept on the card for the bitwise check
+    saved = {k: v.detach().clone()
+             for k, v in _flatten_with_paths(tree).items()}
+    mgr = CheckpointManager(root, "ckpt", num_to_keep=1)
+    writer = AsyncCheckpointWriter()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fut = writer.save(tree, mgr.staging_dir(1), rank=rank, specs=specs,
+                      mesh=mesh, manifest={"metrics": {"step": 1}})
+    t_saved = time.monotonic()
+    in_flight = not fut.done()
+    done = []
+    fut.add_done_callback(lambda _: done.append(time.monotonic()))
+    del tree
+    state, loss = train_step(state, tokens)  # while the write runs
+    losses.append(float(loss))
+    fut.result()
+    dist.barrier()  # every rank file written
+    finalized = None
+    if rank == 0:
+        ckpt = mgr.finalize(1, {"loss": losses[0]}, expected_ranks=4)
+        finalized = ckpt and ckpt.path
+    full = tree_map(lambda t: t.cpu(), gather_state(cfg, state, mesh))
+    if rank == 0:
+        torch.save(full, ref_path)
+    del full
+    dist.barrier()
+    final = mgr.final_dir(1)
+    fresh = shard_state(init_state(SEED + 1))
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    load_train_state(Checkpoint(final).load_state(
+        train_state_tree(*fresh), rank, specs, mesh), *fresh)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t1
+    restored = _flatten_with_paths(train_state_tree(*fresh))
+    bitwise = restored.keys() == saved.keys() and all(
+        torch.equal(restored[k].to(saved[k].device), saved[k])
+        for k in saved)
+    count = int(restored["/1/0/0"])
+    del saved, restored, state
+    torch.cuda.empty_cache()
+    _zero_launches(fa)
+    fresh, loss = train_step(fresh, tokens)
+    torch.cuda.synchronize()
+    return dict(losses=losses, restored_loss=float(loss),
+                launches=_read_launches(fa), bitwise=bitwise, count=count,
+                bytes=nbytes, save_s=t_saved - t0,
+                write_s=done[0] - t_saved, in_flight=in_flight,
+                load_s=load_s, finalized=finalized)
+
+
+def _resident_bytes() -> int:
+    """This process's resident set: /proc/self/statm's second field."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _peak_resident(fn):
+    """``fn()``, and the largest resident set of this process seen while
+    it ran, sampled every 10 ms on a thread (getrusage's ru_maxrss keeps
+    the parent's peak across fork and exec, and the card's machine gives
+    no VmHWM)."""
+    import threading
+
+    peak = [_resident_bytes()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], _resident_bytes())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        t.join()
+    return out, max(peak[0], _resident_bytes())
+
+
+def _ckpt_consolidate(dev, mesh, root, ref_path):
+    """The cross-world restore in a process of its own: the checkpoint of
+    4 ranks into a single-device state (``load_consolidated``), step 2
+    from it with the launches counted from zero, and its parameters held
+    to the gathered sharded ones (``ref_path``). Host memory: this
+    process's resident set before the restore and its peak through it."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import tree_map
+    from ray_tpu_torch.train import (Checkpoint, load_train_state,
+                                     train_state_tree)
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED + 1))
+    torch.cuda.synchronize()
+    rss_before = _resident_bytes()
+    t0 = time.monotonic()
+    tree, rss_peak = _peak_resident(lambda: Checkpoint(
+        root).load_consolidated(train_state_tree(*state)))
+    load_train_state(tree, *state)
+    del tree
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    count = int(train_state_tree(*state)[1][0][0])
+    _zero_launches(fa)
+    state, loss = train_step(state, _train_tokens(data_dev))
+    torch.cuda.synchronize()
+    launches = _read_launches(fa)
+    ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                     weights_only=True)
+
+    def rel_err(got, want):
+        want = want.to(got.device)
+        return ((got.detach() - want).norm() / want.norm()).item()
+
+    return dict(loss=float(loss), launches=launches, count=count,
+                load_s=load_s, rss_before=rss_before, rss_peak=rss_peak,
+                leaf_errors=tree_map(rel_err, state[0], ref))
+
+
+def phase_ckpt(dev):
+    """Checkpoints of the flagship's sharded train state at full width and
+    depth (``CKPT_LABEL``): save while the next step runs, a same-world
+    restore held bitwise and to the uninterrupted step 2, and a
+    cross-world restore into one device held to the shard phase's
+    tolerances."""
+    try:
+        import fsspec  # noqa: F401  (the storage plane's filesystems)
+    except ImportError as e:
+        _fail(f"ckpt phase: fsspec is missing: {e}")
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import tree_leaves
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    world = math.prod(CKPT_MESH.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ref_path = os.path.join(tmp, "step2_params.pt")
+        t0 = time.monotonic()
+        per = _run_ranks(dev, "ckpt", CKPT_MESH, _ckpt_rank, tmp, ref_path)
+        final = per[0]["finalized"]
+        _check(final is not None, "ckpt phase: rank 0 did not finalize")
+        one = _run_ranks(dev, "ckpt1", {}, _ckpt_consolidate, final,
+                         ref_path)[0]
+        wall_s = time.monotonic() - t0
+        files = sorted(os.listdir(final))
+        file_bytes = sum(os.path.getsize(os.path.join(final, f))
+                         for f in files if f.startswith("rank_"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = sum(p["bytes"] for p in per)
+    l2 = per[0]["losses"][1]
+    want_launches = dict(k1=2 * cfg.n_layers, k2=cfg.n_layers,
+                         k3=cfg.n_layers, k4=0)
+    gb = 1e9
+    out = dict(
+        config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                    mesh=CKPT_MESH),
+        label=CKPT_LABEL, wall_s=wall_s, files=files,
+        losses=per[0]["losses"],
+        restored_losses=[p["restored_loss"] for p in per],
+        restored_loss_rel=abs(per[0]["restored_loss"] - l2) / abs(l2),
+        one_device_loss=one["loss"], one_device_loss_diff=abs(
+            one["loss"] - l2),
+        one_device_leaf_rel_err=one["leaf_errors"],
+        bitwise=[p["bitwise"] for p in per],
+        counts=[p["count"] for p in per] + [one["count"]],
+        launches_per_rank=[p["launches"] for p in per],
+        launches_one_device=one["launches"],
+        bytes_per_rank=[p["bytes"] for p in per], bytes_total=total,
+        file_bytes_total=file_bytes,
+        save_blocking_s=[p["save_s"] for p in per],
+        write_s=[p["write_s"] for p in per],
+        write_gb_per_s=[p["bytes"] / p["write_s"] / gb for p in per],
+        write_in_flight_at_step2=[p["in_flight"] for p in per],
+        load_state_s=[p["load_s"] for p in per],
+        load_state_gb_per_s=[p["bytes"] / p["load_s"] / gb for p in per],
+        load_consolidated_s=one["load_s"],
+        load_consolidated_gb_per_s=total / one["load_s"] / gb,
+        consolidating_rss_before_gb=one["rss_before"] / gb,
+        consolidating_rss_peak_gb=one["rss_peak"] / gb)
+    print(json.dumps({"ckpt": out}), flush=True)
+    print(f"ckpt: {out['bytes_per_rank'][0] / gb:.4f} GB a rank, "
+          f"{total / gb:.4f} GB in all; save blocks "
+          f"{max(out['save_blocking_s']):.3f} s, write "
+          f"{max(out['write_s']):.3f} s "
+          f"({min(out['write_gb_per_s']):.3f} GB/s a rank); load_state "
+          f"{max(out['load_state_s']):.3f} s "
+          f"({min(out['load_state_gb_per_s']):.3f} GB/s); "
+          f"load_consolidated {one['load_s']:.3f} s "
+          f"({out['load_consolidated_gb_per_s']:.3f} GB/s), peak host "
+          f"memory {out['consolidating_rss_peak_gb']:.2f} GB ({CKPT_LABEL})",
+          flush=True)
+    _check(len([f for f in files if f.startswith("rank_")]) == world,
+           f"ckpt: the checkpoint holds {files}, want {world} rank files")
+    _check(all(out["write_in_flight_at_step2"]),
+           f"ckpt: a write had landed before step 2 began: "
+           f"{out['write_in_flight_at_step2']}")
+    _check(all(out["bitwise"]), f"ckpt: a restored block differs from the "
+           f"saved one: {out['bitwise']}")
+    _check(out["counts"] == [1] * (world + 1),
+           f"ckpt: restored step counts {out['counts']}, want 1")
+    _check(all(math.isfinite(x) for x in out["losses"]
+               + out["restored_losses"] + [one["loss"]]),
+           f"ckpt: a loss is not finite: {out}")
+    _check(all(abs(x - l2) <= TOL_CKPT_LOSS_REL * abs(l2)
+               for x in out["restored_losses"]),
+           f"ckpt: same-world step-2 losses {out['restored_losses']} vs "
+           f"{l2}: beyond {TOL_CKPT_LOSS_REL} relative")
+    _check(out["one_device_loss_diff"] <= TOL_SHARD_LOSS,
+           f"ckpt: one-device step-2 loss {one['loss']} vs {l2}: beyond "
+           f"{TOL_SHARD_LOSS}")
+    _check(max(tree_leaves(one["leaf_errors"])) <= TOL_SHARD_PARAM,
+           f"ckpt: one-device parameters after step 2 beyond "
+           f"||err||/||ref|| {TOL_SHARD_PARAM}: {one['leaf_errors']}")
+    for r, p in enumerate(per):
+        _check(p["launches"] == want_launches,
+               f"ckpt: rank {r} launched {p['launches']} on its restored "
+               f"step, want {want_launches}")
+    _check(one["launches"] == want_launches,
+           f"ckpt: one device launched {one['launches']} on its restored "
+           f"step, want {want_launches}")
+    return out
+
+
+# The rllib learners (rllib/) on the card: each at its own default widths
+# on a seeded batch of a realistic size, 20 updates on CUDA against the
+# same learner on the CPU from the same weights and batches (and, for SAC,
+# the same noise); fp32 products stay fp32 (TF32 off, torch's default)
+RL_UPDATES = 20
+RL_ROWS = 256
+RL_PPO_ROWS = 4096          # minibatch 128, 4 epochs (its defaults)
+RL_OBS, RL_ACTIONS, RL_ACT_DIM = 8, 4, 2
+TOL_RL = 1e-4
+
+
+def _rl_batch(seed):
+    """Every column a learner reads, seeded: RL_ROWS rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = RL_ROWS
+    term = (rng.random(n) < 0.05).astype(np.float32)
+    actions = rng.integers(0, RL_ACTIONS, n)
+    return dict(
+        obs=rng.normal(size=(n, RL_OBS)).astype(np.float32),
+        next_obs=rng.normal(size=(n, RL_OBS)).astype(np.float32),
+        actions=actions.astype(np.int32), action=actions.astype(np.int64),
+        logp=rng.normal(-1.4, 0.1, n).astype(np.float32),
+        rewards=rng.normal(size=n).astype(np.float32),
+        reward=rng.normal(size=n).astype(np.float32),
+        terminated=term,
+        cut=np.maximum(term, rng.random(n) < 0.05).astype(np.float32),
+        cont_actions=np.tanh(rng.normal(size=(n, RL_ACT_DIM))).astype(
+            np.float32),
+        bc_targets=rng.normal(size=(n, RL_ACTIONS)).astype(np.float32))
+
+
+def _rl_cases():
+    """name -> (learner class name, constructor args, keywords, the
+    arguments of update i)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    n = RL_PPO_ROWS
+    ppo = dict(obs=rng.normal(size=(n, RL_OBS)).astype(np.float32),
+               actions=rng.integers(0, RL_ACTIONS, n).astype(np.int32),
+               logp=rng.normal(-1.4, 0.1, n).astype(np.float32),
+               advantages=rng.normal(size=n).astype(np.float32),
+               returns=rng.normal(size=n).astype(np.float32))
+    b = _rl_batch(SEED + 12)
+    vt = {k: b[k] for k in ("obs", "next_obs", "actions", "logp", "rewards",
+                            "terminated", "cut")}
+    rp = {k: b[k] for k in ("obs", "next_obs", "actions", "rewards",
+                            "terminated")}
+    sac = dict(rp, actions=b["cont_actions"])
+    cql = {k: b[k] for k in ("obs", "action", "reward", "next_obs",
+                             "terminated")}
+    noise = np.random.default_rng(SEED + 13).normal(
+        size=(RL_UPDATES, 2, RL_ROWS, RL_ACT_DIM)).astype(np.float32)
+    return {
+        "ppo": ("PPOLearner", (RL_OBS, RL_ACTIONS), {}, lambda i: (ppo,)),
+        "vtrace": ("VTraceLearner", (RL_OBS, RL_ACTIONS), {},
+                   lambda i: (vt,)),
+        "appo": ("APPOLearner", (RL_OBS, RL_ACTIONS), {}, lambda i: (vt,)),
+        "dqn": ("DQNLearner", (RL_OBS, RL_ACTIONS), {}, lambda i: (rp,)),
+        "sac": ("SACLearner", (RL_OBS, RL_ACT_DIM), {},
+                lambda i: (sac, noise[i])),
+        "bc_discrete": ("BCLearner", (RL_OBS, RL_ACTIONS),
+                        dict(discrete=True),
+                        lambda i: (b["obs"], b["action"])),
+        "bc_continuous": ("BCLearner", (RL_OBS, RL_ACTIONS),
+                          dict(discrete=False),
+                          lambda i: (b["obs"], b["bc_targets"])),
+        "cql": ("CQLLearner", (RL_OBS, RL_ACTIONS), {}, lambda i: (cql,)),
+    }
+
+
+def _rl_run(kind, args, kwargs, update_args, device, weights):
+    """RL_UPDATES updates of ``kind`` on ``device`` from ``weights``: the
+    metrics of each (a dict, or BC's loss), the final weights and each
+    update's seconds (host clock; reading the metrics synchronises)."""
+    import ray_tpu_torch.rllib as tr
+
+    lrn = getattr(tr, kind)(*args, device=device, **kwargs)
+    lrn.set_weights(weights)
+    metrics, secs = [], []
+    for i in range(RL_UPDATES):
+        t = time.monotonic()
+        m = lrn.update(*update_args(i))
+        secs.append(time.monotonic() - t)
+        metrics.append(m if isinstance(m, dict) else {"loss": m})
+    return metrics, lrn.get_weights(), secs
+
+
+def phase_rl(dev):
+    """The learners on the card against themselves on the CPU."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch.rllib as tr
+    from ray_tpu_torch.rllib.learner import leaves
+
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "rl: TF32 products are on; the learners compute in fp32")
+    out, bad = {}, []
+    for name, (kind, args, kwargs, update_args) in _rl_cases().items():
+        w0 = getattr(tr, kind)(*args, device="cpu", **kwargs).get_weights()
+        cpu_m, cpu_w, _ = _rl_run(kind, args, kwargs, update_args, "cpu",
+                                  w0)
+        gpu_m, gpu_w, secs = _rl_run(kind, args, kwargs, update_args, dev,
+                                     w0)
+        # each metric's largest error over the updates, relative to its
+        # largest value over them (a loss may cross zero); each parameter
+        # leaf's ||err|| / ||ref||
+        metric_err = {}
+        for key in cpu_m[0]:
+            ref = np.array([m[key] for m in cpu_m])
+            got = np.array([m[key] for m in gpu_m])
+            metric_err[key] = float(np.abs(got - ref).max()
+                                    / max(np.abs(ref).max(), 1e-12))
+        param_err = max(
+            float(np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-12))
+            for g, c in zip(leaves(gpu_w), leaves(cpu_w)))
+        finite = all(np.isfinite(list(m.values())).all()
+                     for m in cpu_m + gpu_m)
+        row = dict(learner=kind, kwargs=kwargs,
+                   rows=RL_PPO_ROWS if name == "ppo" else RL_ROWS,
+                   updates=RL_UPDATES,
+                   ms_per_update=1e3 * float(np.mean(secs[1:])),
+                   first_update_ms=1e3 * secs[0], metric_rel_err=metric_err,
+                   param_rel_err=param_err, finite=finite,
+                   last=gpu_m[-1])
+        out[name] = row
+        print(f"rl {name}: {row['ms_per_update']:.3f} ms an update on the "
+              f"card; metrics within {max(metric_err.values()):.2e}, "
+              f"parameters within {param_err:.2e} of the CPU", flush=True)
+        if not finite or param_err > TOL_RL or max(
+                metric_err.values()) > TOL_RL:
+            bad.append(name)
+    print(json.dumps({"rl": out}), flush=True)
+    _check(not bad, f"rl: {bad} beyond {TOL_RL} of the CPU run or not "
+           f"finite: {[out[n] for n in bad]}")
+    return out
+
+
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
@@ -2372,7 +2821,7 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring", "shard", "pipe", "vit", "moe")
+          "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl")
 
 
 def main(argv=None) -> int:
@@ -2449,6 +2898,12 @@ def main(argv=None) -> int:
     if "moe" in phases:
         torch.cuda.empty_cache()
         report["moe"] = phase_moe(dev)
+    if "ckpt" in phases:
+        torch.cuda.empty_cache()
+        report["ckpt"] = phase_ckpt(dev)
+    if "rl" in phases:
+        torch.cuda.empty_cache()
+        report["rl"] = phase_rl(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

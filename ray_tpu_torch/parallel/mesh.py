@@ -196,13 +196,23 @@ def block_range(n: int, k: int, i: int) -> Tuple[int, int]:
     return start, min(size, n - start)
 
 
-def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of the global tensor ``t`` under ``spec``: the
-    block JAX's ``NamedSharding(mesh, spec)`` puts on the device at this
-    rank's mesh position (a view). A dim split over several axes is cut
-    into their product of blocks, the first axis outermost; a dim they do
-    not divide is cut as GSPMD cuts it (``block_range``)."""
+def is_split(spec, mesh) -> bool:
+    """Whether an axis of size > 1 splits a dim under ``spec``: otherwise
+    every rank holds the whole tensor."""
     shape = mesh_shape(mesh)
+    return any(shape[a] > 1 for entry in spec for a in _dim_axes(entry))
+
+
+def block_bounds(global_shape, spec, mesh) -> list:
+    """[start, stop) of this rank's block in each dim of a tensor of
+    ``global_shape`` under ``spec``: the region JAX's
+    ``NamedSharding(mesh, spec)`` puts on the device at this rank's mesh
+    position, as its shards' ``index`` gives it. A dim split over several
+    axes is cut into their product of blocks, the first axis outermost; a
+    dim they do not divide is cut as GSPMD cuts it (``block_range``), so
+    a block may be short or empty."""
+    shape = mesh_shape(mesh)
+    bounds = [[0, int(d)] for d in global_shape]
     for dim, entry in enumerate(spec):
         axes = _dim_axes(entry)
         n = math.prod(shape[a] for a in axes)
@@ -211,8 +221,40 @@ def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         block = 0
         for a in axes:
             block = block * shape[a] + axis_index(mesh, a)
-        t = t.narrow(dim, *block_range(t.shape[dim], n, block))
+        start, length = block_range(int(global_shape[dim]), n, block)
+        bounds[dim] = [start, start + length]
+    return bounds
+
+
+def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec``
+    (``block_bounds``), a view."""
+    for dim, (start, stop) in enumerate(block_bounds(t.shape, spec, mesh)):
+        if stop - start != t.shape[dim]:
+            t = t.narrow(dim, start, stop - start)
     return t
+
+
+def global_shapes(blocks, specs, mesh) -> list:
+    """The global shape of each tensor of ``blocks``, this rank's blocks
+    under ``specs`` (one spec each): a split dim's length summed over the
+    ranks that hold its other blocks, one all-reduce for each combination
+    of axes. Every rank calls it together."""
+    shapes = [list(t.shape) for t in blocks]
+    by_axes = {}
+    for i, spec in enumerate(specs):
+        for dim, entry in enumerate(spec):
+            axes = tuple(a for a in _dim_axes(entry)
+                         if mesh_shape(mesh)[a] > 1)
+            if axes:
+                by_axes.setdefault(axes, []).append((i, dim))
+    for axes, where in by_axes.items():
+        lengths = [torch.tensor(float(shapes[i][dim]),
+                                device=blocks[i].device) for i, dim in where]
+        all_reduce_sum(lengths, mesh, axes)
+        for (i, dim), n in zip(where, lengths):
+            shapes[i][dim] = int(n.item())
+    return [tuple(s) for s in shapes]
 
 
 def gather_full(t: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -503,3 +503,316 @@ def mesh_info(axes):
     mesh = _axes_mesh(axes)
     return dict(host_local_mesh_info(mesh), rank=dist.get_rank(),
                 coords=tuple(axis_index(mesh, a) for a in AXES))
+
+
+# -- train/_checkpoint.py ------------------------------------------------------
+
+
+def _train_tree_np(tree):
+    """A ``train_state_tree`` tree as {path: numpy copy} (count an int)."""
+    from ray_tpu_torch.train._checkpoint import _flatten_with_paths
+
+    return {path: (int(leaf) if path == "/1/0/0" else _np(leaf).copy())
+            for path, leaf in _flatten_with_paths(tree).items()}
+
+
+def _gathered_tree(tree, specs, mesh):
+    """The global arrays of a rank's ``train_state_tree`` tree, {path:
+    numpy copy}, every rank taking part in the gathers (a leaf no axis
+    splits comes back as the rank's own tensor: copied)."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import gather_full
+    from ray_tpu_torch.train._checkpoint import (_flatten_with_paths,
+                                                 _leaf_specs)
+
+    leaf_specs = _leaf_specs(tree, specs)
+    return {path: (int(leaf) if path == "/1/0/0" else _np(gather_full(
+        leaf.detach().contiguous(), leaf_specs[path], mesh)).copy())
+        for path, leaf in _flatten_with_paths(tree).items()
+        if torch.is_tensor(leaf)}
+
+
+def ckpt_blocks(root, full, axes, spec, how, rank_file=0):
+    """This rank's block of a leaf of global value ``full`` placed as
+    ``spec`` on the mesh of ``axes``, restored from the checkpoint at
+    ``root`` into {"w": block, "step": 0} by ``how`` ("load_state" of rank
+    file ``rank_file``, or "load_consolidated"): (the block, the step, the
+    block's bounds), or the ``ValueError``'s text."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import block_bounds, shard_of
+    from ray_tpu_torch.train import Checkpoint
+
+    mesh = _axes_mesh(axes)
+    skeleton = {"w": torch.zeros_like(shard_of(torch.from_numpy(full), spec,
+                                               mesh)), "step": 0}
+    ckpt = Checkpoint(root)
+    try:
+        if how == "load_state":
+            out = ckpt.load_state(skeleton, rank_file, {"w": spec}, mesh)
+        else:
+            out = ckpt.load_consolidated(skeleton, {"w": spec}, mesh)
+    except ValueError as e:
+        return str(e)
+    assert out["w"] is skeleton["w"]  # written in place
+    return _np(out["w"]), out["step"], block_bounds(full.shape, spec, mesh)
+
+
+def ckpt_snapshot(arrays, specs, axes):
+    """``snapshot_with_meta`` of this rank's blocks of ``arrays`` (a dict
+    of global numpy arrays, placed as ``specs``; an array without a spec
+    whole) on the mesh of ``axes``: (host arrays, shard metadata)."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import shard_of
+    from ray_tpu_torch.train import snapshot_with_meta
+
+    mesh = _axes_mesh(axes)
+    blocks = {k: shard_of(torch.from_numpy(a), specs.get(k, ()),
+                          mesh).contiguous() for k, a in arrays.items()}
+    return snapshot_with_meta(blocks, specs, mesh)
+
+
+def ckpt_save_blocks(root, arrays, specs, axes):
+    """Each rank saves its blocks of ``arrays`` (global numpy, placed as
+    ``specs`` on the mesh of ``axes``) as rank file ``rank`` under
+    ``root``; then each restores them with ``load_state`` into zeroed
+    blocks. Returns whether every restored block equals the saved one."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import shard_of
+    from ray_tpu_torch.train import AsyncCheckpointWriter, Checkpoint
+
+    mesh = _axes_mesh(axes)
+    blocks = {k: shard_of(torch.from_numpy(a), specs[k], mesh).clone()
+              for k, a in arrays.items()}
+    rank = dist.get_rank()
+    AsyncCheckpointWriter().save(blocks, root, rank=rank, specs=specs,
+                                 mesh=mesh).result(60)
+    dist.barrier()
+    fresh = {k: torch.zeros_like(b) for k, b in blocks.items()}
+    Checkpoint(root).load_state(fresh, rank, specs, mesh)
+    return all(torch.equal(fresh[k], blocks[k]) for k in blocks)
+
+
+def ckpt_llama_restore(shape, root, tokens, lr, axes, impl="flash"):
+    """Restore the Llama train state at ``root`` (any world size) into this
+    rank's blocks on the mesh of ``axes`` with ``load_consolidated`` and
+    take one step on ``tokens``: (the restored global tree {path: array},
+    the step's loss, the global parameters after it); rank 0 alone returns
+    the arrays."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.mesh import tree_map
+    from ray_tpu_torch.train import (Checkpoint, load_train_state,
+                                     train_state_specs, train_state_tree)
+
+    cfg = _cfg(shape, impl)
+    mesh = _axes_mesh(axes)
+    init_state, _, train_step, _ = tl.make_train_step(
+        cfg, mesh, learning_rate=lr, loss_chunk=0, device="cpu")
+    params, opt = init_state(1)
+    specs = train_state_specs(tl.param_specs(cfg))
+    tree = Checkpoint(root).load_consolidated(
+        train_state_tree(params, opt), specs, mesh)
+    load_train_state(tree, params, opt)
+    restored = _gathered_tree(train_state_tree(params, opt), specs, mesh)
+    _, loss = train_step((params, opt), torch.from_numpy(tokens))
+    after = tree_map(_np, tl.gather_state(cfg, (params, opt), mesh))
+    if dist.get_rank() != 0:
+        return None, float(loss), None
+    return restored, float(loss), after
+
+
+def ckpt_llama_save(shape, tree, tokens, lr, axes, steps, root, writers,
+                    impl="flash"):
+    """``steps`` steps of ``make_train_step`` on the mesh of ``axes`` from
+    the carried weights, then a save of the train state under ``root`` by
+    the ranks ``writers`` maps to a rank-file number (each writing its
+    blocks with shard metadata), then one more step. Returns (the losses,
+    the global tree saved, the parameters after the last step); rank 0
+    alone returns the arrays."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel.mesh import tree_map
+    from ray_tpu_torch.train import (AsyncCheckpointWriter,
+                                     global_leaf_shapes, train_state_specs,
+                                     train_state_tree)
+
+    cfg = _cfg(shape, impl)
+    mesh = _axes_mesh(axes)
+    init_state, shard_state, train_step, _ = tl.make_train_step(
+        cfg, mesh, learning_rate=lr, loss_chunk=0, device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    toks = torch.from_numpy(tokens)
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, toks)
+        losses.append(float(loss))
+    specs = train_state_specs(tl.param_specs(cfg))
+    saved = train_state_tree(*state)
+    shapes = global_leaf_shapes(saved, specs, mesh)
+    rank = dist.get_rank()
+    if rank in writers:
+        AsyncCheckpointWriter().save(
+            saved, root, rank=writers[rank], specs=specs, mesh=mesh,
+            shapes=shapes, manifest={"metrics": {"step": steps}}).result(60)
+    saved_np = _gathered_tree(saved, specs, mesh)
+    saved_np["/1/0/0"] = steps
+    dist.barrier()  # every file is written
+    state, loss = train_step(state, toks)
+    losses.append(float(loss))
+    after = tree_map(_np, tl.gather_state(cfg, state, mesh))
+    if rank != 0:
+        return losses, None, None
+    return losses, saved_np, after
+
+
+def ckpt_same_world(shape, tree, tokens, lr, axes, root):
+    """A step of ``make_train_step`` on the mesh of ``axes``, a save by
+    every rank, a same-world ``load_state`` into a fresh state
+    (``init_state(1)``): whether every parameter, moment and the count came
+    back bitwise, and the next step's loss from the saved and the restored
+    state. Rank 0 then restores the checkpoint into a single-device state
+    with ``load_consolidated``: whether it equals the gathered state, and
+    its next step's loss."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.train import (AsyncCheckpointWriter, Checkpoint,
+                                     load_train_state, train_state_specs,
+                                     train_state_tree)
+
+    cfg = _cfg(shape, "flash")
+    mesh = _axes_mesh(axes)
+    init_state, shard_state, train_step, _ = tl.make_train_step(
+        cfg, mesh, learning_rate=lr, loss_chunk=0, device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    toks = torch.from_numpy(tokens)
+    state, _ = train_step(state, toks)
+    specs = train_state_specs(tl.param_specs(cfg))
+    rank = dist.get_rank()
+    AsyncCheckpointWriter().save(train_state_tree(*state), root, rank=rank,
+                                 specs=specs, mesh=mesh).result(60)
+    saved = _gathered_tree(train_state_tree(*state), specs, mesh)
+    dist.barrier()
+    fresh = init_state(1)
+    load_train_state(Checkpoint(root).load_state(
+        train_state_tree(*fresh), rank, specs, mesh), *fresh)
+    want = _train_tree_np(train_state_tree(*state))
+    got = _train_tree_np(train_state_tree(*fresh))
+    bitwise = got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in want)
+    _, loss = train_step(state, toks)
+    _, loss_restored = train_step(fresh, toks)
+    if rank != 0:
+        return bitwise, float(loss), float(loss_restored), None
+    one_init, _, one_step, _ = tl.make_train_step(
+        cfg, learning_rate=lr, loss_chunk=0, device="cpu")
+    one = one_init(1)
+    tree1 = Checkpoint(root).load_consolidated(train_state_tree(*one))
+    load_train_state(tree1, *one)
+    whole = _train_tree_np(train_state_tree(*one))
+    same = whole.keys() == saved.keys() and all(
+        np.array_equal(whole[k], saved[k]) for k in saved)
+    _, loss_one = one_step(one, toks)
+    return bitwise, float(loss), float(loss_restored), (same,
+                                                        float(loss_one))
+
+
+def ckpt_pipeline(shape, tree, tokens, lr, axes, n_micro, root_pp, root_one):
+    """A pipeline state restored at pp 1 and back, as a JAX user would:
+    ``load_consolidated`` into a whole skeleton, then ``unstack_stages`` /
+    ``stack_stages``. One step of ``make_pipeline_train_step`` on the mesh
+    of ``axes`` from the carried weights, a save under ``root_pp`` by every
+    rank, one more step (its loss). Rank 0 restores the checkpoint into a
+    single-device state (through a whole stage-stacked skeleton,
+    unstacked), takes a step, saves under ``root_one`` and takes another.
+    Then every rank restores that into a fresh pipeline state (a whole
+    layer-stacked skeleton, stacked, its blocks cut) and takes a step.
+    Returns (the pipeline's two losses); rank 0 also (whether the state it
+    restored equals the saved one, its two losses)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models._sharded import adamw
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.parallel import pipeline as tpp
+    from ray_tpu_torch.parallel.mesh import shard_of, tree_leaves, tree_map
+    from ray_tpu_torch.train import (AsyncCheckpointWriter, Checkpoint,
+                                     load_train_state, train_state_specs,
+                                     train_state_tree)
+
+    cfg = _cfg(shape, "xla")
+    mesh = _axes_mesh(axes)
+    S = axes["pp"]
+    pspecs = tpp.pipeline_param_specs(cfg)
+    specs = train_state_specs(pspecs)
+    init_state, shard_state, train_step, _ = tpp.make_pipeline_train_step(
+        cfg, mesh, n_micro, learning_rate=lr, device="cpu")
+    state = shard_state(init_state(params_from_jax(tree, "cpu")))
+    toks = torch.from_numpy(tokens)
+    state, _ = train_step(state, toks)
+    rank = dist.get_rank()
+    AsyncCheckpointWriter().save(train_state_tree(*state), root_pp,
+                                 rank=rank, specs=specs,
+                                 mesh=mesh).result(60)
+    saved = _gathered_tree(train_state_tree(*state), specs, mesh)
+    dist.barrier()
+    state, loss_pp = train_step(state, toks)
+
+    def whole_skeleton(stacked):
+        """A whole train tree of the global shapes: layer-stacked, or
+        stage-stacked (views of the layer-stacked tensors)."""
+        p = tl.init_params(cfg, 0, device="cpu")
+        opt = adamw(tree_leaves(p), lr)
+        if stacked:
+            p = dict(p, layers=tpp.stack_stages(p["layers"], S))
+        return train_state_tree(p, opt)
+
+    def restack(t, fn):
+        params, ((count, mu, nu), *_) = t
+        over = [dict(d, layers=fn(d["layers"])) for d in (params, mu, nu)]
+        return over[0], ((count, over[1], over[2]), (), ())
+
+    one = None
+    if rank == 0:
+        stage_tree = Checkpoint(root_pp).load_consolidated(
+            whole_skeleton(True))
+        same = _train_tree_np(stage_tree).keys() == saved.keys() and all(
+            np.array_equal(v, saved[k])
+            for k, v in _train_tree_np(stage_tree).items())
+        layer_tree = restack(stage_tree, tpp.unstack_stages)
+        one_init, _, one_step, _ = tl.make_train_step(
+            cfg, learning_rate=lr, loss_chunk=0, device="cpu")
+        one_state = one_init(layer_tree[0])
+        load_train_state(layer_tree, *one_state)
+        one_state, loss_one = one_step(one_state, toks)
+        AsyncCheckpointWriter().save(train_state_tree(*one_state), root_one,
+                                     rank=0).result(60)
+        one_state, loss_one_next = one_step(one_state, toks)
+        one = (same, float(loss_one), float(loss_one_next))
+    dist.barrier()
+    layer_tree = Checkpoint(root_one).load_consolidated(whole_skeleton(False))
+    stage_tree = restack(layer_tree,
+                         lambda d: tpp.stack_stages(d, S))
+    params, ((count, mu, nu), *_) = stage_tree
+
+    def cut(d):
+        return tree_map(lambda t, spec: shard_of(t, spec, mesh), d, pspecs)
+
+    fresh = init_state(1)
+    load_train_state((cut(params), ((count, cut(mu), cut(nu)), (), ())),
+                     *fresh)
+    _, loss_back = train_step(fresh, toks)
+    return (float(loss_pp), float(loss_back)), one

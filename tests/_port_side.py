@@ -828,3 +828,247 @@ def vit_moe_cuda_default_errors():
         "vit.make_train_step": lambda: vit.make_train_step(cfg)[0](0),
         "init_moe_params": lambda: init_moe_params(0, 16, 32, 8),
     })
+
+
+# -- rllib/ ------------------------------------------------------------------
+
+
+def convert_nest(tree):
+    """``params_from_jax`` of a nest of dicts, lists and tuples → the same
+    nest of (numpy value, dtype name, torch type name) leaves."""
+    from ray_tpu_torch.models.convert import nest_map
+
+    return nest_map(lambda t: (_np(t), str(t.dtype), type(t).__name__),
+                    params_from_jax(tree, "cpu"))
+
+
+def rl_learner(kind, args, kwargs, weights=None, calls=(), target=False):
+    """The port's ``ray_tpu_torch.rllib.<kind>(*args, **kwargs)`` on the
+    CPU: ``weights`` (JAX's nest) copied in with ``set_weights`` (and, with
+    ``target``, made its target network too, as JAX's APPO starts from its
+    initial parameters), then each of ``calls``, (method, args, kwargs),
+    run in order. Returns the calls' results and the final weights."""
+    import ray_tpu_torch.rllib as tr
+
+    lrn = getattr(tr, kind)(*args, device="cpu", **kwargs)
+    if weights is not None:
+        lrn.set_weights(weights)
+    if target:
+        lrn.target_params = params_from_jax(weights, "cpu")
+    out = [getattr(lrn, name)(*a, **kw) for name, a, kw in calls]
+    return out, lrn.get_weights()
+
+
+def rl_policy_logits(weights, obs):
+    """``policy_logits`` of JAX-nested ``weights`` on ``obs``."""
+    from ray_tpu_torch.rllib.learner import policy_logits
+
+    with torch.no_grad():
+        return _np(policy_logits(params_from_jax(weights, "cpu"), _T(obs)))
+
+
+def rl_mlp_apply(weights, x):
+    from ray_tpu_torch.rllib.learner import mlp_apply
+
+    with torch.no_grad():
+        return _np(mlp_apply(params_from_jax(weights, "cpu"), _T(x)))
+
+
+def rl_ppo_loss(weights, mb, clip, vf_coeff, entropy_coeff):
+    """The port's PPO ``_loss`` (total, pg, vf, entropy) on a minibatch."""
+    from ray_tpu_torch.rllib.learner import PPO_COLUMNS, _loss, batch_tensors
+
+    with torch.no_grad():
+        total, aux = _loss(params_from_jax(weights, "cpu"),
+                           batch_tensors(mb, PPO_COLUMNS, "cpu"), clip,
+                           vf_coeff, entropy_coeff)
+    return [float(total), *(float(a) for a in aux)]
+
+
+def rl_gae(*args, **kwargs):
+    from ray_tpu_torch.rllib import compute_gae
+
+    return compute_gae(*args, **kwargs)
+
+
+def rl_replay(batches, capacity, seed, draws):
+    """A port ``ReplayBuffer`` fed ``batches``: its length and ``draws``
+    samples of the given sizes."""
+    from ray_tpu_torch.rllib import ReplayBuffer
+
+    buf = ReplayBuffer(capacity=capacity, seed=seed)
+    for b in batches:
+        buf.add_batch(b)
+    return len(buf), [buf.sample(n) for n in draws]
+
+
+def rl_connectors(obs, norm_chunks):
+    """FlattenObs then a doubling Lambda on ``obs``; and NormalizeObs's
+    output on each of ``norm_chunks`` in turn."""
+    from ray_tpu_torch.rllib.connectors import (ConnectorPipeline,
+                                                FlattenObs, Lambda,
+                                                NormalizeObs)
+
+    pipe = ConnectorPipeline([
+        FlattenObs(),
+        Lambda(lambda b: {**b, "obs": b["obs"] * 2.0}),
+    ])
+    norm = NormalizeObs()
+    return (pipe({"obs": obs})["obs"],
+            [norm({"obs": c})["obs"] for c in norm_chunks])
+
+
+def rl_cuda_default_errors():
+    """Each learner with no device: the error where CUDA is missing."""
+    import ray_tpu_torch.rllib as tr
+
+    return _errors(dict(
+        PPOLearner=lambda: tr.PPOLearner(4, 2),
+        VTraceLearner=lambda: tr.VTraceLearner(4, 2),
+        APPOLearner=lambda: tr.APPOLearner(4, 2),
+        DQNLearner=lambda: tr.DQNLearner(4, 2),
+        SACLearner=lambda: tr.SACLearner(3, 1),
+        BCLearner=lambda: tr.BCLearner(4, 2, discrete=True),
+        CQLLearner=lambda: tr.CQLLearner(4, 2)))
+
+
+# -- train/ --------------------------------------------------------------------
+
+
+def _zeros_like_nest(skeleton):
+    from ray_tpu_torch.models.convert import nest_map
+
+    return nest_map(lambda a: torch.zeros(np.shape(a), dtype=torch.float32)
+                    if isinstance(a, np.ndarray) else a, skeleton)
+
+
+def ckpt_restore_whole(root, skeleton, how="load_consolidated", rank=0):
+    """Restore the checkpoint at ``root`` into a whole skeleton of torch
+    zeros shaped as ``skeleton``'s arrays (Python numbers kept), by
+    ``how`` (``load_state`` reads rank file ``rank``): the result as
+    numpy, or the ``ValueError``'s text."""
+    from ray_tpu_torch.models.convert import nest_map
+    from ray_tpu_torch.train import Checkpoint
+
+    ckpt = Checkpoint(root)
+    sk = _zeros_like_nest(skeleton)
+    try:
+        out = (ckpt.load_state(sk, rank) if how == "load_state"
+               else ckpt.load_consolidated(sk))
+    except ValueError as e:
+        return str(e)
+    return nest_map(lambda t: _np(t) if torch.is_tensor(t) else t, out)
+
+
+def ckpt_num_ranks(root):
+    from ray_tpu_torch.train import Checkpoint
+
+    return Checkpoint(root).num_ranks()
+
+
+def ckpt_snapshot_whole(arrays):
+    """``snapshot_with_meta`` of whole tensors (no specs, no mesh)."""
+    from ray_tpu_torch.train import snapshot_with_meta
+
+    return snapshot_with_meta({k: _T(a) for k, a in arrays.items()})
+
+
+def ckpt_manager_recovers(root):
+    """``test_train.py::test_checkpoint_manager_recovers_existing`` on the
+    port's ``CheckpointManager``: (finalize's result is not None, the new
+    manager's latest path, the first's)."""
+    from ray_tpu_torch.train import CheckpointManager
+
+    mgr = CheckpointManager(root, "recover", num_to_keep=3)
+    os.makedirs(mgr.staging_dir(0))
+    np.savez(os.path.join(mgr.staging_dir(0), "rank_0.npz"), w=np.ones(2))
+    done = mgr.finalize(0, {"loss": 1.0}, expected_ranks=1) is not None
+    mgr2 = CheckpointManager(root, "recover", num_to_keep=3)
+    return (done, mgr2.latest and mgr2.latest.path,
+            mgr.latest and mgr.latest.path)
+
+
+def ckpt_manager_memory_fs():
+    """``test_storage_plane.py::test_checkpoint_roundtrip_through_memory_fs``
+    on the port: save → finalize → top-K retention → restore → recovery,
+    all through memory://. Returns what that test asserts."""
+    from ray_tpu_torch.train import AsyncCheckpointWriter, CheckpointManager
+
+    writer = AsyncCheckpointWriter()
+    mgr = CheckpointManager("memory://port_ckpts", "run1", num_to_keep=2,
+                            metric="loss", mode="min")
+    w = torch.arange(6.0).reshape(2, 3)
+    steps = []
+    for step, loss in [(1, 5.0), (2, 3.0), (3, 4.0)]:
+        writer.save({"w": w, "step": step}, mgr.staging_dir(step),
+                    manifest={"metrics": {"loss": loss}}).result(60)
+        ckpt = mgr.finalize(step, {"loss": loss}, expected_ranks=1)
+        steps.append(ckpt and ckpt.step)
+    restored = mgr.best.load_state({"w": torch.zeros(2, 3), "step": 0})
+    mgr2 = CheckpointManager("memory://port_ckpts", "run1", num_to_keep=2,
+                             metric="loss", mode="min")
+    return dict(
+        finalized=steps, kept=sorted(c.step for c in mgr.checkpoints),
+        best=mgr.best.step, latest=mgr.latest.step,
+        restored=_np(restored["w"]), restored_step=restored["step"],
+        recovered=sorted(c.step for c in mgr2.checkpoints),
+        recovered_best_loss=mgr2.best.metrics["loss"])
+
+
+def ckpt_snapshot_owns(shape, tree, tokens, lr):
+    """A snapshot of the train state taken before a step (whose AdamW
+    updates parameters and moments in place) is unchanged after it: the
+    snapshot, the same state's snapshot after the step, and a second
+    snapshot of the pre-step state taken before the step. Also a
+    ``save`` before the step: the file it writes holds the pre-step
+    values."""
+    import tempfile
+
+    from ray_tpu_torch.train import (AsyncCheckpointWriter, Checkpoint,
+                                     snapshot_to_host, train_state_tree)
+    from ray_tpu_torch.train._checkpoint import _flatten_with_paths
+
+    cfg = _cfg(shape)
+    init_state, _, train_step, _ = tl.make_train_step(
+        cfg, learning_rate=lr, loss_chunk=0, device="cpu")
+    state = init_state(params_from_jax(tree, "cpu"))
+    toks = _T(tokens)
+    state, _ = train_step(state, toks)
+    before = snapshot_to_host(train_state_tree(*state))
+    copy = {k: v.copy() for k, v in before.items()}
+    root = tempfile.mkdtemp(prefix="port_ckpt_")
+    fut = AsyncCheckpointWriter().save(train_state_tree(*state), root)
+    state, _ = train_step(state, toks)
+    fut.result(60)
+    after = snapshot_to_host(train_state_tree(*state))
+    skeleton = train_state_tree(*init_state(1))
+    from_file = Checkpoint(root).load_state(skeleton)
+    file_vals = {k: (int(v) if k == "/1/0/0" else _np(v))
+                 for k, v in _flatten_with_paths(from_file).items()}
+    return before, copy, after, file_vals
+
+
+def ckpt_fresh_state(shape, tree, lr):
+    """The snapshot of ``train_state_tree`` of a state that has not
+    stepped, and facts of a fresh optimizer's state after
+    ``load_train_state`` of it."""
+    from ray_tpu_torch.train import (load_train_state, snapshot_to_host,
+                                     train_state_tree)
+    from ray_tpu_torch.train._checkpoint import _flatten_with_paths
+
+    init_state, _, _, _ = tl.make_train_step(
+        _cfg(shape), learning_rate=lr, loss_chunk=0, device="cpu")
+    params, opt = init_state(params_from_jax(tree, "cpu"))
+    host = snapshot_to_host(train_state_tree(params, opt))
+    params2, opt2 = init_state(1)
+    load_train_state(train_state_tree(params, opt), params2, opt2)
+    st = [opt2.state[p] for p in tl.tree_leaves(params2)]
+    flat, flat2 = _flatten_with_paths(params), _flatten_with_paths(params2)
+    return host, dict(
+        built=len(st) == len(flat2),
+        steps={float(s["step"]) for s in st},
+        zero=all(not s["exp_avg"].any() and not s["exp_avg_sq"].any()
+                 for s in st),
+        dtypes={str(s["exp_avg"].dtype) for s in st},
+        params_equal=flat.keys() == flat2.keys() and all(
+            torch.equal(flat[k], flat2[k]) for k in flat))
