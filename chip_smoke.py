@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs fifteen phases and fails (exit 1) if any check fails:
+runs sixteen phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -119,6 +119,23 @@ runs fifteen phases and fails (exit 1) if any check fails:
             noise, every metric and final parameter within 1e-4; ms an
             update. Their products are PyTorch's own: the JAX package has
             no kernel for them.
+* runtime — the port's own task and actor runtime on the card:
+            ``ray_tpu_torch.init`` with ``RT_GPU_AUTODETECT=1`` (the GPU
+            resource detected, a node label with the card's name); a
+            num_gpus=1 task makes one K1 call at the serve shape (1
+            launch, the k1 phase's gate); a num_gpus=1 actor builds
+            ``LLMServer`` at llama3_8b (full width and depth, random bf16
+            weights from the seed) and a ``PagedEngine`` on its weights,
+            and answers the serve phase's 4 requests streamed back through
+            the object plane (first tokens the plain forward's argmax, 128
+            K1 launches, the engine's gauges read through the metrics
+            plane; TTFT and tokens/s beside the serve phase's); neither the
+            node daemon nor the control store maps CUDA or torch; a second
+            num_gpus=1 actor waits until the first is killed; a 256 MiB
+            bf16 CUDA tensor put by the driver is read by a num_gpus=1 task
+            bitwise (GB/s host-staged, with the stages of put and get
+            timed apart); after shutdown no process of this cluster (its
+            session) is left.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2742,6 +2759,488 @@ def phase_rl(dev):
     return out
 
 
+# the runtime phase: the port's own cluster on the card
+RUNTIME_CPUS = 4
+RUNTIME_FLUSH_S = 0.1      # metrics flush to the control store (default 1 s)
+RUNTIME_MODEL = ("llama3_8b", {"param_dtype": "bfloat16"})
+RUNTIME_ECFG = dict(max_num_seqs=4, kv_block_size=16, num_kv_blocks=256,
+                    max_model_len=1024)  # the serve phase's
+RUNTIME_PENDING_WAIT_S = 5.0
+RUNTIME_TENSOR_SHAPE = (8192, 16384)   # bf16: 256 MiB
+RUNTIME_STORE_BYTES = 1 << 30  # the tensor and _put_stages' copy of it
+
+
+def _cluster_pids(session_dir: str, owned=()) -> list:
+    """Pids of this run's cluster still running: the processes ``init``
+    started (``owned``: control store, daemon) and every process whose
+    command line or environment names the cluster's session dir (its
+    workers). A cluster of another run on the same host is not counted."""
+    key = session_dir.encode()
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{d}/environ", "rb") as f:
+                env = f.read()
+        except OSError:
+            continue
+        if cmd and (int(d) in owned or key in cmd or key in env):
+            pids.append(int(d))
+    return pids
+
+
+def _maps_hold(pid: int, *names) -> list:
+    """Which of ``names`` (library name parts) process ``pid`` has mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        return []
+    return [n for n in names if n in maps]
+
+
+def _compute_app_pids() -> list:
+    """Pids with a CUDA context, as nvidia-smi lists them ([] when it lists
+    none: in a container it may not see the processes)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    return [int(x) for x in smi.stdout.split() if x.strip().isdigit()]
+
+
+def _tensor_checksums(t) -> list:
+    """Two int64 checksums of a bf16 tensor's bits: their sum, and a sum
+    weighted by position (a permutation changes it)."""
+    import torch
+
+    bits = t.reshape(-1).view(torch.int16).long()
+    w = torch.arange(bits.numel(), device=bits.device) % 65521
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def _runtime_k1_task(shape, seed):
+    """A num_gpus=1 task: one K1 call at the serve shape against its plain
+    version, in the worker the lease bound to its device."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, h, kvh, s, hd = shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, s, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, kvh, s, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, kvh, s, hd), generator=gen, device=dev).bfloat16()
+    fa.flash_fwd_launches = 0
+    o, lse = fa._flash_fwd_cuda(q, k, v, True)
+    torch.cuda.synchronize()
+    launches = fa.flash_fwd_launches
+    ro, rlse = fa._attention_reference(q, k, v, True)
+    err = (o.float() - ro.float()).abs()
+    return dict(
+        pid=os.getpid(),
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        device_name=torch.cuda.get_device_name(), launches=launches,
+        err_o=err.max().item(), err_lse=(lse - rlse).abs().max().item(),
+        o_ok=bool((err <= TOL_O + TOL_O_REL * ro.float().abs()).all()),
+        finite=bool(torch.isfinite(o).all() and torch.isfinite(lse).all()))
+
+
+class _EngineHost:
+    """The serve phase's model and engine in an actor of the port's runtime:
+    ``LLMServer`` builds Llama-3-8B (random bf16 weights from the seed) on
+    the device the lease granted, and a ``PagedEngine`` on its weights
+    answers streamed requests. Built here, so no weight crosses the object
+    store."""
+
+    def __init__(self, model, overrides, ecfg, seed):
+        import dataclasses
+
+        import torch
+
+        from ray_tpu_torch.llm import LLMConfig, LLMServer
+        from ray_tpu_torch.llm._engine import EngineConfig, PagedEngine
+
+        t0 = time.monotonic()
+        kw = {k: getattr(torch, v) if k.endswith("dtype") else v
+              for k, v in overrides.items()}
+        self.server = LLMServer(LLMConfig(
+            model_id=f"{model}-random", model=model,
+            model_overrides={**kw, "attention_impl": "flash"}, seed=seed))
+        self.xcfg = dataclasses.replace(self.server.cfg, attention_impl="xla")
+        self.engine = PagedEngine(self.server.cfg, self.server.params,
+                                  EngineConfig(**ecfg))
+        torch.cuda.synchronize()
+        self.build_s = time.monotonic() - t0
+
+    async def info(self):
+        # a coroutine method makes this an async actor (an async generator
+        # alone does not), so the streamed requests run concurrently
+        import torch
+
+        return dict(pid=os.getpid(), build_s=self.build_s,
+                    cuda_visible_devices=os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    device_name=torch.cuda.get_device_name(),
+                    n_params=self.server.cfg.num_params(),
+                    n_layers=self.server.cfg.n_layers,
+                    vocab_size=self.server.cfg.vocab_size,
+                    memory_allocated=torch.cuda.memory_allocated())
+
+    async def stream(self, prompt, max_tokens):
+        async for tok in self.engine.generate_stream(prompt,
+                                                     max_tokens=max_tokens):
+            yield tok
+
+    def zero_launches(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_fwd_launches = 0
+        return self.engine.stats()
+
+    def report(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.util.metrics import snapshot_all
+
+        gauges = {s["name"]: s["value"] for s in snapshot_all()
+                  if s["name"].startswith("rt_llm_")
+                  and s["type"] == "gauge"}
+        return fa.flash_fwd_launches, self.engine.stats(), gauges
+
+    def plain_first_tokens(self, prompts):
+        """The plain ("xla") forward's argmax at each prompt's last
+        position, and its top-1 margin."""
+        import torch
+
+        from ray_tpu_torch.models.llama import forward
+
+        out = []
+        with torch.no_grad():
+            for p in prompts:
+                ref = forward(self.xcfg, self.server.params,
+                              torch.tensor([p], device="cuda"))[0, -1]
+                top2 = torch.topk(ref.float(), 2).values
+                out.append((int(torch.argmax(ref)),
+                            float(top2[0] - top2[1])))
+        return out
+
+    def complete(self, payload):
+        return self.server(payload)
+
+
+class _VisibleDevices:
+    def visible(self):
+        return os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def _runtime_read_tensor(refs):
+    """A num_gpus=1 task: get the driver's CUDA tensor (host-staged: the
+    store's bytes onto this worker's device) and checksum it."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    torch.empty(1, device="cuda")  # the CUDA context, outside the timing
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    t = rt.get(refs[0], timeout=120)
+    torch.cuda.synchronize()
+    get_s = time.monotonic() - t0
+    # its stages: the same get again, the store's pages now mapped in this
+    # process; a pageable host-to-device copy alone, from touched memory
+    t0 = time.monotonic()
+    again = rt.get(refs[0], timeout=120)
+    torch.cuda.synchronize()
+    get_again_s = time.monotonic() - t0
+    del again
+    host = torch.ones(t.numel() * t.element_size(), dtype=torch.uint8)
+    t0 = time.monotonic()
+    host.to("cuda")
+    torch.cuda.synchronize()
+    h2d_s = time.monotonic() - t0
+    return dict(pid=os.getpid(), get_s=get_s, get_again_s=get_again_s,
+                h2d_s=h2d_s, device=str(t.device), dtype=str(t.dtype),
+                shape=list(t.shape), checksums=_tensor_checksums(t))
+
+
+def _put_stages(rt, x) -> dict:
+    """``put``'s stages for the CUDA tensor ``x`` on this host: serialize
+    (its device-to-host copy into fresh pageable memory), the copy of the
+    bytes into a new object's untouched store pages, the same copy again
+    into those pages once they are mapped (the difference: page faults)."""
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch._private.ids import ObjectID
+
+    store = rt.get_core_worker().store
+    t0 = time.monotonic()
+    sobj = ser.serialize(x)
+    serialize_s = time.monotonic() - t0
+    oid = ObjectID.from_random()
+    view = store.create(oid, sobj.total_bytes)
+    t0 = time.monotonic()
+    sobj.write_into(view)
+    store_write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    sobj.write_into(view)
+    store_rewrite_s = time.monotonic() - t0
+    view.release()
+    store.seal(oid)
+    store.delete(oid)
+    return dict(serialize_s=serialize_s, store_write_s=store_write_s,
+                store_rewrite_s=store_rewrite_s)
+
+
+def _gauges_through_plane(rt):
+    """The rt_llm_* gauges as the control store's scrape reports them:
+    {worker: {name: value}}."""
+    cw = rt.get_core_worker()
+    reply = cw.run_sync(cw.control.call("get_metrics", {}), 30)
+    out = {}
+    for wid, rec in reply["workers"].items():
+        got = {s["name"]: s["value"] for s in rec["metrics"]
+               if s.get("name", "").startswith("rt_llm_")
+               and s.get("type") == "gauge"}
+        if got:
+            out[wid.hex() if isinstance(wid, bytes) else str(wid)] = got
+    return out
+
+
+def phase_runtime(dev, inproc=None):
+    """The port's own runtime on the card (see the module docstring);
+    ``inproc``: the serve phase's numbers, printed beside the actor's."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.gpu.accelerator import GpuAcceleratorManager
+
+    out = {}
+    torch.cuda.empty_cache()
+    os.environ["RT_GPU_AUTODETECT"] = "1"
+    t0 = time.monotonic()
+    rt.init(num_cpus=RUNTIME_CPUS,
+            system_config={"telemetry_flush_period_s": RUNTIME_FLUSH_S,
+                           "object_store_memory_bytes": RUNTIME_STORE_BYTES})
+    out["cluster_start_s"] = time.monotonic() - t0
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        res = rt.cluster_resources()
+        labels = rt.nodes()[0]["labels"]
+        out.update(resources=res, labels=labels)
+        print(f"runtime: cluster up in {out['cluster_start_s']:.2f} s: "
+              f"{res}, labels {labels}", flush=True)
+        _check(res.get("GPU") == torch.cuda.device_count(),
+               f"runtime: GPU resource {res.get('GPU')} != "
+               f"{torch.cuda.device_count()} devices")
+        _check(labels.get("gpu-name") == torch.cuda.get_device_name(0),
+               f"runtime: node labels {labels} lack the card's name")
+
+        # one K1 call in a GPU task
+        task = rt.remote(num_gpus=1)(_runtime_k1_task)
+        k1 = rt.get(task.remote(K1_MAIN_SHAPE, SEED), timeout=300)
+        out["k1_task"] = k1
+        print(json.dumps({"runtime_k1_task": k1}), flush=True)
+        _check(k1["launches"] == 1 and k1["finite"] and k1["o_ok"]
+               and k1["err_lse"] <= TOL_LSE,
+               f"runtime: K1 in a GPU task: {k1}")
+        _check(k1["device_name"] == torch.cuda.get_device_name(0),
+               f"runtime: the task's device is {k1['device_name']}")
+
+        # the serving path in a GPU actor
+        model, overrides = RUNTIME_MODEL
+        Host = rt.remote(num_gpus=1)(_EngineHost)
+        t = time.monotonic()
+        host = Host.remote(model, overrides, RUNTIME_ECFG, SEED)
+        info = rt.get(host.info.remote(), timeout=600)
+        info["actor_start_s"] = time.monotonic() - t
+        out["actor"] = info
+        print(json.dumps({"runtime_actor": info}), flush=True)
+        rng = np.random.RandomState(SEED + 1)   # the serve phase's prompts
+        vocab = info["vocab_size"]
+        prompts = [rng.randint(0, vocab, size=n).tolist()
+                   for n in SERVE_PROMPTS]
+        warm = rng.randint(0, vocab, size=100).tolist()
+        for ref in host.stream.options(num_returns="streaming").remote(
+                warm, 4):
+            rt.get(ref, timeout=120)
+        base = rt.get(host.zero_launches.remote(), timeout=60)
+        submit, stamps, toks = {}, {}, {}
+        peak = {}
+        stop, first = threading.Event(), threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                for g in _gauges_through_plane(rt).values():
+                    for k, v in g.items():
+                        peak[k] = max(peak.get(k, 0.0), v)
+                stop.wait(RUNTIME_FLUSH_S / 2)
+
+        def one(i):
+            submit[i] = time.monotonic()
+            gen = host.stream.options(num_returns="streaming").remote(
+                prompts[i], SERVE_MAX_TOKENS)
+            ts, got = [], []
+            for ref in gen:
+                got.append(rt.get(ref, timeout=120))
+                ts.append(time.monotonic())
+                first.set()
+            toks[i], stamps[i] = got, ts
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        t_start = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        first.wait(600)  # the last request arrives mid-decode
+        threads.append(threading.Thread(target=one, args=(3,)))
+        threads[-1].start()
+        for th in threads:
+            th.join(600)
+        wall = time.monotonic() - t_start
+        time.sleep(3 * RUNTIME_FLUSH_S)  # the last flush of the gauges
+        stop.set()
+        poller.join(10)
+        launches, st, local_gauges = rt.get(host.report.remote(), timeout=60)
+        plane = _gauges_through_plane(rt)
+        ref_first = rt.get(host.plain_first_tokens.remote(prompts),
+                           timeout=300)
+        done = rt.get(host.complete.remote(
+            {"prompt": ["The H100 is"], "max_tokens": 4}), timeout=300)
+        n_tokens = sum(len(v) for v in toks.values())
+        ttft = {SERVE_PROMPTS[i]: stamps[i][0] - submit[i] for i in stamps
+                if stamps[i]}
+        serve = dict(
+            tokens_out=n_tokens, wall_s=wall, tokens_per_s=n_tokens / wall,
+            ttft_s=ttft, ttft_p50_s=sorted(ttft.values())[len(ttft) // 2],
+            k1_launches=launches,
+            mid_decode_admissions=(st["mid_decode_admissions"]
+                                   - base["mid_decode_admissions"]),
+            first_token_top1_margins=[m for _, m in ref_first],
+            gauges_peak_through_plane=peak, gauges_final_through_plane=plane,
+            gauges_final_in_actor=local_gauges,
+            llm_server_completion_tokens=done["usage"]["completion_tokens"])
+        out["serve"] = serve
+        print(json.dumps({"runtime_serve": serve}), flush=True)
+        if inproc is not None:
+            print(f"runtime: through the actor TTFT p50 "
+                  f"{serve['ttft_p50_s']:.4f} s, {serve['tokens_per_s']:.1f} "
+                  f"tokens/s; in process TTFT p50 "
+                  f"{inproc['ttft_p50_s']:.4f} s, "
+                  f"{inproc['tokens_per_s']:.1f} tokens/s", flush=True)
+        _check(all(len(toks.get(i, [])) == SERVE_MAX_TOKENS
+                   for i in range(len(prompts))),
+               f"runtime: not every request got {SERVE_MAX_TOKENS} tokens")
+        for i, (want, margin) in enumerate(ref_first):
+            _check(toks[i][0] == want,
+                   f"runtime: request {i}: first token {toks[i][0]} != the "
+                   f"plain forward's argmax {want} (margin {margin:.4f})")
+        _check(launches == len(prompts) * info["n_layers"],
+               f"runtime: the actor's engine launched K1 {launches} times")
+        _check(serve["mid_decode_admissions"] >= 1,
+               "runtime: no mid-decode admission")
+        want_final = {"rt_llm_batch_occupancy": 0.0,
+                      "rt_llm_kv_blocks_in_use": 0}
+        _check(local_gauges == want_final
+               and want_final in [dict(g) for g in plane.values()],
+               f"runtime: gauges in the actor {local_gauges}, through the "
+               f"plane {plane}")
+        _check(peak.get("rt_llm_batch_occupancy", 0) > 0
+               and peak.get("rt_llm_kv_blocks_in_use", 0) > 0,
+               f"runtime: the plane never showed a busy engine: {peak}")
+
+        # no CUDA context, and no torch, in the daemon or the control store:
+        # neither is in nvidia-smi's list (in a container it may list no
+        # real pid) nor maps libcuda or libtorch, which the actor does
+        apps = _compute_app_pids()
+        held = {p: _maps_hold(p, "libcuda", "libtorch") for p in system_pids}
+        actor_maps = _maps_hold(info["pid"], "libcuda", "libtorch")
+        out["system_processes"] = dict(
+            pids=system_pids, compute_apps=apps, mapped=held,
+            actor_listed=info["pid"] in apps, actor_mapped=actor_maps)
+        print(json.dumps({"runtime_system_processes":
+                          out["system_processes"]}), flush=True)
+        _check(actor_maps == ["libcuda", "libtorch"],
+               f"runtime: the actor maps {actor_maps}: the check cannot see "
+               f"a CUDA context")
+        _check(not set(system_pids) & set(apps) and not any(held.values()),
+               f"runtime: a system process holds CUDA or torch: "
+               f"{out['system_processes']}")
+
+        # GPU lease accounting: a second 1-GPU actor waits for the card
+        Vis = rt.remote(num_gpus=1)(_VisibleDevices)
+        second = Vis.remote()
+        pending = second.visible.remote()
+        ready, _ = rt.wait([pending], timeout=RUNTIME_PENDING_WAIT_S)
+        _check(not ready, "runtime: a second 1-GPU actor started while the "
+               "engine actor held the card")
+        rt.kill(host)
+        t = time.monotonic()
+        pid2, visible2 = rt.get(pending, timeout=120)
+        gpus = GpuAcceleratorManager.detect(allow_cuda_probe=False)
+        want_env = dict(os.environ)
+        GpuAcceleratorManager.set_visible_devices_env(
+            want_env, gpus.device_ids[:1], gpus.count)
+        out["lease"] = dict(pending_after_s=RUNTIME_PENDING_WAIT_S,
+                            started_after_kill_s=time.monotonic() - t,
+                            cuda_visible_devices=visible2)
+        print(json.dumps({"runtime_lease": out["lease"]}), flush=True)
+        _check(visible2 == want_env.get("CUDA_VISIBLE_DEVICES"),
+               f"runtime: the second actor sees CUDA_VISIBLE_DEVICES "
+               f"{visible2!r}")
+        rt.kill(second)
+
+        # a CUDA tensor through the object store, host-staged
+        x = torch.randn(RUNTIME_TENSOR_SHAPE, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED)).bfloat16()
+        want = _tensor_checksums(x)
+        nbytes = x.numel() * x.element_size()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        x.cpu()  # the device-to-host copy alone, into fresh host memory
+        d2h_s = time.monotonic() - t
+        t = time.monotonic()
+        ref = rt.put(x)
+        put_s = time.monotonic() - t
+        reader = rt.remote(num_gpus=1)(_runtime_read_tensor)
+        got = rt.get(reader.remote([ref]), timeout=300)
+        obj = dict(bytes=nbytes, d2h_s=d2h_s, put_s=put_s,
+                   put_gbps=nbytes / put_s / 1e9,
+                   get_s=got["get_s"], get_gbps=nbytes / got["get_s"] / 1e9,
+                   get_again_s=got["get_again_s"], h2d_s=got["h2d_s"],
+                   **_put_stages(rt, x),
+                   device=got["device"], checksums=got["checksums"],
+                   want=want)
+        out["object"] = obj
+        print(json.dumps({"runtime_object": obj}), flush=True)
+        _check(got["checksums"] == want and got["device"].startswith("cuda")
+               and got["dtype"] == "torch.bfloat16"
+               and got["shape"] == list(RUNTIME_TENSOR_SHAPE),
+               f"runtime: the CUDA tensor came back different: {got}")
+        del x, ref
+    finally:
+        rt.shutdown()
+        os.environ.pop("RT_GPU_AUTODETECT", None)
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    _check(not left, f"runtime: processes left after shutdown: {left}")
+    print(f"runtime: shut down, no process of the cluster left", flush=True)
+    return out
+
+
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
@@ -2821,7 +3320,7 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl")
+          "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime")
 
 
 def main(argv=None) -> int:
@@ -2904,6 +3403,8 @@ def main(argv=None) -> int:
     if "rl" in phases:
         torch.cuda.empty_cache()
         report["rl"] = phase_rl(dev)
+    if "runtime" in phases:
+        report["runtime"] = phase_runtime(dev, report.get("serve"))
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -416,6 +416,12 @@ class PagedEngine:
             full = plen // self.bs
             self.free_blocks.extend(
                 cache.register(keys[:full], row_blocks[:full]))
+            if hits:
+                from ray_tpu_torch.util.metrics import Counter
+
+                Counter("rt_llm_prefix_hits_total",
+                        "KV blocks reused from the prompt-prefix cache "
+                        "instead of re-prefilled.").inc(len(hits))
         self._activate_slot(req, slot, tok)
         return True
 
@@ -647,9 +653,21 @@ class PagedEngine:
             req.aborted = True
 
     def _publish_metrics(self):
-        """Hook for engine telemetry (KV blocks in use, batch occupancy,
-        prefix-cache hits). The port's metrics plane is a later slice; until
-        then the numbers are read through ``stats()``."""
+        """Engine telemetry on the metrics plane, the JAX engine's two
+        gauges (constructors are idempotent — re-construction returns the
+        registered instrument)."""
+        from ray_tpu_torch.util.metrics import Gauge
+
+        e = self.ecfg
+        evictable = (self._prefix_cache.evictable_blocks()
+                     if self._prefix_cache is not None else 0)
+        in_use = e.num_kv_blocks - len(self.free_blocks) - evictable
+        Gauge("rt_llm_kv_blocks_in_use",
+              "KV pool blocks held by in-flight sequences (zero-ref "
+              "prefix-cache blocks count as free capacity).").set(in_use)
+        Gauge("rt_llm_batch_occupancy",
+              "Fraction of decode batch slots active.").set(
+            float(self.active.sum()) / max(1, e.max_num_seqs))
 
     def stats(self) -> Dict[str, Any]:
         cache = self._prefix_cache

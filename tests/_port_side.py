@@ -1072,3 +1072,98 @@ def ckpt_fresh_state(shape, tree, lr):
         dtypes={str(s["exp_avg"].dtype) for s in st},
         params_equal=flat.keys() == flat2.keys() and all(
             torch.equal(flat[k], flat2[k]) for k in flat))
+
+
+# -- the runtime: tensors through the object plane, the engine's metrics -----
+
+
+def _tensor_cases():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, generator=g)
+    return {
+        "bf16": x.to(torch.bfloat16),
+        "fp32_transposed": x.t(),  # not contiguous
+        "int64_scalar": torch.tensor(7),
+        "bool": x > 0,
+        "empty": torch.empty(0, 4),
+        "requires_grad": x.clone().requires_grad_(),
+        "large_bf16": torch.randn(256, 1024, generator=g).to(torch.bfloat16),
+    }
+
+
+def _same_tensor(a, b) -> bool:
+    return (type(a) is torch.Tensor and a.dtype == b.dtype
+            and a.shape == b.shape and a.device == b.device
+            and a.requires_grad == b.requires_grad
+            and bool(torch.equal(a.detach(), b.detach())))
+
+
+def tensor_roundtrip():
+    """Each case through the port's serialize / deserialize (read-only
+    bytes, as the shared-memory store hands them out): {name: (same
+    tensor, out-of-band buffers)}."""
+    from ray_tpu_torch._private import serialization as ser
+
+    out = {}
+    for name, t in _tensor_cases().items():
+        so = ser.serialize({"t": t, "n": np.arange(3)})
+        back = ser.deserialize(memoryview(so.to_bytes()))
+        out[name] = (_same_tensor(back["t"], t)
+                     and back["n"].tolist() == [0, 1, 2], len(so.buffers))
+    return out
+
+
+def tensor_cluster_roundtrip():
+    """Tensors through a cluster of the port on the CPU: put by the driver
+    and read by a task, made by a task and read by the driver. {name:
+    (task saw the same tensor, driver got the same tensor)}."""
+    import ray_tpu_torch as rt
+
+    cases = _tensor_cases()
+
+    @rt.remote
+    def echo(t, want_sum):
+        import torch as th
+
+        return float(t.detach().double().sum()) == want_sum, t.clone()
+
+    rt.init(num_cpus=2)
+    try:
+        out = {}
+        for name, t in cases.items():
+            want = float(t.detach().double().sum())
+            seen, back = rt.get(echo.remote(rt.put(t), want), timeout=120)
+            out[name] = (seen, _same_tensor(back, t))
+        return out
+    finally:
+        rt.shutdown()
+
+
+def _gauges():
+    from ray_tpu_torch.util.metrics import snapshot_all
+
+    return sorted((s["name"], s["value"]) for s in snapshot_all()
+                  if s["name"].startswith("rt_llm_")
+                  and s["type"] == "gauge")
+
+
+def engine_metrics(shape, tree, ecfg, prompts, max_tokens):
+    """The engine's gauges from the port's metrics registry once every
+    prompt has its first token (all admitted), then once all finished."""
+    from ray_tpu_torch.util.metrics import reset_registry
+
+    reset_registry()
+    eng = _engine(shape, tree, ecfg)
+
+    async def main():
+        gens = [eng.generate_stream(p, max_tokens=max_tokens,
+                                    temperature=0.0) for p in prompts]
+        for g in gens:
+            await g.__anext__()
+        mid = _gauges()
+        for g in gens:
+            async for _ in g:
+                pass
+        return mid, _gauges()
+
+    return asyncio.run(main())
