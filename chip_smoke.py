@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs sixteen phases and fails (exit 1) if any check fails:
+runs eighteen phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -136,6 +136,37 @@ runs sixteen phases and fails (exit 1) if any check fails:
             bitwise (GB/s host-staged, with the stages of put and get
             timed apart); after shutdown no process of this cluster (its
             session) is left.
+* trainer — ``TorchTrainer`` (``ray_tpu_torch.train``) on the port's
+            cluster (``init(num_cpus=4)``, the GPU detected): one
+            ``use_gpu`` worker (a ``{"GPU": 1}`` lease) trains the
+            flagship (the train phase's config, seed, batch, lr and remat,
+            "flash") for 9 steps, reporting each and checkpointing the
+            train state after steps 2, 5 and 8 (``num_to_keep=2``); its
+            first attempt exits after step 4's report, the controller
+            restarts it on a fresh worker from the step-2 checkpoint and
+            it runs steps 3 to 9. Gates: every loss within 1e-2 of the
+            train phase's at the same step; the resumed steps 3 and 4
+            within 1e-5 of the killed run's; K1/K2/K3 32/16/16 a step in
+            the worker, on the card; checkpoints 5 and 8 kept, the 8 read
+            by ``Checkpoint.load_state`` in this process stepping to the
+            worker's step-9 loss (1e-5); no process left after shutdown.
+            Cluster and worker start s, step ms in the worker against the
+            train phase's, the s each report blocks, kill to the resumed
+            worker's first step.
+* stages  — the flagship trained by 2 pipeline-stage actors of 8 layers
+            (``train/pipeline_actors.py``, "flash", no remat), 4
+            microbatches of 2 x 2048 of the train batch, 3 steps by
+            ``ActorPipeline``, then 3 by ``CompiledActorPipeline`` (the
+            compiled DAG over shm channels, slot_size 9 MiB: a microbatch's
+            8 MiB bf16 activation and its header); on one card both stages
+            share it without leases, each stage gets a num_gpus=1 lease
+            where the host has a card a stage. Gates: losses within 1e-2
+            of ``make_train_step`` in process (no remat, same seed), eager
+            and compiled within 1e-3 of each other; K1 64, K2 32, K3 32 a
+            step a stage (forward, then the backward's recompute and its
+            gradients); 64 MiB of activations and gradients handed on a
+            step. Step s of each. ``k1``/``k23`` hold K1-K3 at the stage
+            microbatch (2, 8, 4, 2048, 128).
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -169,9 +200,11 @@ SEED = 0
 VIT_SHAPE = (128, 12, 12, 196, 64)
 # a pipe-phase microbatch: one sequence of the flagship, all 8 heads
 PIPE_SHAPE = (1, 8, 4, 2048, 128)
+# a stages-phase microbatch: two sequences of the flagship (8 / 4)
+STAGE_SHAPE = (2, 8, 4, 2048, 128)
 K1_SHAPES = [(1, 32, 8, s, 128) for s in (64, 200, 256, 512, 2048)] + [
     (2, 8, 8, 384, 64), (8, 8, 4, 2048, 128), (4, 4, 2, 2048, 128),
-    VIT_SHAPE, PIPE_SHAPE]
+    VIT_SHAPE, PIPE_SHAPE, STAGE_SHAPE]
 K1_MAIN_SHAPE = (1, 32, 8, 512, 128)  # the serve phase's largest bucket
 
 
@@ -332,11 +365,11 @@ def phase_k1(dev):
 # (b, h, kvh, s, hd) of the K2/K3 check: the training flagship's heads and
 # batch first (the main path's shape), Llama-3-8B's (rep 4), a ragged s,
 # one MHA shape at head_dim 64, a shard-phase rank's share of the flagship
-# (its grid is a quarter of the flagship's), ViT-B/16's and a pipe-phase
-# microbatch's
+# (its grid is a quarter of the flagship's), ViT-B/16's, a pipe-phase
+# microbatch's and a stages-phase microbatch's
 K23_SHAPES = [(8, 8, 4, 2048, 128), (1, 32, 8, 2048, 128),
               (1, 32, 8, 200, 128), (2, 8, 8, 384, 64), (4, 4, 2, 2048, 128),
-              VIT_SHAPE, PIPE_SHAPE]
+              VIT_SHAPE, PIPE_SHAPE, STAGE_SHAPE]
 K23_MAIN_SHAPE = K23_SHAPES[0]
 # each gradient is accumulated in fp32 and rounded to bf16 once (2^-8
 # relative): per tensor, ||err|| / ||ref|| and max|err| / max|ref|
@@ -1098,14 +1131,21 @@ TOL_LOSS_REL = 1e-2
 GRAD_COS_MIN = 0.99
 
 
-def _train_tokens(dev):
-    """The train phase's global batch: TRAIN_BATCH x TRAIN_SEQ seeded
-    tokens (the shard phase trains on the same)."""
+def _train_tokens_np():
+    """The train phase's global batch as numpy: TRAIN_BATCH x TRAIN_SEQ
+    seeded tokens (the shard, trainer and stages phases train on the
+    same)."""
     import numpy as np
+
+    return np.random.RandomState(SEED + 2).randint(
+        0, TRAIN_CFG["vocab_size"], size=(TRAIN_BATCH, TRAIN_SEQ))
+
+
+def _train_tokens(dev):
+    """``_train_tokens_np`` on ``dev``."""
     import torch
 
-    return torch.from_numpy(np.random.RandomState(SEED + 2).randint(
-        0, TRAIN_CFG["vocab_size"], size=(TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+    return torch.from_numpy(_train_tokens_np()).to(dev)
 
 
 def _palm_flops_per_token(cfg, seq):
@@ -3241,11 +3281,431 @@ def phase_runtime(dev, inproc=None):
     return out
 
 
+TRAINER_CPUS = 4
+TRAINER_STEPS = 9
+TRAINER_CKPT_STEPS = (2, 5, 8)
+TRAINER_KILL_AFTER = 4     # the first attempt exits after this step's report
+TOL_TRAINER_LOSS = 1e-2    # absolute, against the in-process train phase
+TOL_TRAINER_RESUME = 1e-5  # a resumed step against the killed run's
+
+
+def _trainer_fn(config):
+    """The trainer phase's train fn, in a num_gpus=1 train worker: the
+    flagship from the seed, restored from the run's latest checkpoint,
+    ``make_train_step`` steps on the train batch, a report after each
+    (with the train state at ``ckpt_steps``); the first attempt exits
+    after ``kill_after``'s report, once the step-2 checkpoint is final and
+    the controller holds every report."""
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t_fn = time.time()
+    restarted = os.path.exists(config["marker"])
+    dev = train.setup_torch_distributed()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    ctx = train.get_context()
+    cfg = LlamaConfig(**config["cfg"], attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=config["lr"], remat=config["remat"],
+        loss_chunk=0, device=dev)
+    params, opt = shard_state(init_state(config["seed"]))
+    start, restore_s = 1, None
+    ckpt = ctx.get_checkpoint()
+    if ckpt is not None:
+        t = time.time()
+        tree = ckpt.load_state(train.train_state_tree(params, opt))
+        train.load_train_state(tree, params, opt)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t
+        start = ckpt.step + 1
+    tokens = torch.from_numpy(config["tokens"]).to(data_dev)
+    prev_report = None  # (step, seconds its report blocked)
+    for step in range(start, config["steps"] + 1):
+        fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+        fa.flash_bwd_dkv_launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        (params, opt), loss = train_step((params, opt), tokens)
+        loss = float(loss)
+        step_s = time.time() - t
+        metrics = dict(
+            step=step, loss=loss, step_s=step_s, restarted=restarted,
+            pid=os.getpid(), device=str(dev),
+            device_name=torch.cuda.get_device_name(dev),
+            visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+            launches=dict(k1=fa.flash_fwd_launches,
+                          k2=fa.flash_bwd_dq_launches,
+                          k3=fa.flash_bwd_dkv_launches),
+            t_fn=t_fn, t_cuda=t_cuda, t_step_end=time.time(),
+            restore_s=restore_s if step == start else None,
+            prev_report=prev_report)
+        t = time.time()
+        if step in config["ckpt_steps"]:
+            train.report(metrics, checkpoint_state=train.train_state_tree(
+                params, opt))
+        else:
+            train.report(metrics)
+        prev_report = (step, time.time() - t)
+        if step == config["kill_after"] and not restarted:
+            final = os.path.join(config["run_dir"], "checkpoint_%09d"
+                                 % config["ckpt_steps"][0])
+            deadline = time.time() + 300
+            while time.time() < deadline and not (
+                    os.path.isdir(final) and ctx.report_queue.empty()):
+                time.sleep(0.05)
+            with open(config["marker"], "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+    # the last report's blocking time rides a report of its own
+    train.report({"step": config["steps"], "final": True,
+                  "prev_report": prev_report})
+
+
+def _trainer_reference(dev):
+    """Losses of TRAINER_STEPS in-process steps of the train phase's run
+    (its seed, batch, lr and remat), when the train phase did not run."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+        device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _train_tokens(data_dev)
+    losses = []
+    for _ in range(TRAINER_STEPS):
+        state, loss = train_step(state, tokens)
+        losses.append(float(loss))
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_trainer(dev, inproc=None):
+    """``TorchTrainer`` on the port's cluster (see the module docstring):
+    the flagship trained in a num_gpus=1 train worker across a kill of
+    the worker, held to the in-process train phase (``inproc``: its
+    report, losses a step and step ms; the losses are computed here when
+    it is None)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.train import (Checkpoint, CheckpointConfig,
+                                     FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer,
+                                     load_train_state, train_state_tree)
+
+    t_phase = time.monotonic()
+    train_losses = (inproc["losses"] if inproc is not None
+                    else _trainer_reference(dev))
+    torch.cuda.empty_cache()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    os.environ["RT_GPU_AUTODETECT"] = "1"
+    t0 = time.monotonic()
+    rt.init(num_cpus=TRAINER_CPUS)
+    out["cluster_start_s"] = time.monotonic() - t0
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        config = dict(
+            cfg=TRAIN_CFG, lr=TRAIN_LR, remat=TRAIN_REMAT, seed=SEED,
+            tokens=_train_tokens_np(), steps=TRAINER_STEPS,
+            ckpt_steps=TRAINER_CKPT_STEPS, kill_after=TRAINER_KILL_AFTER,
+            marker=os.path.join(tmp, "killed"),
+            run_dir=os.path.join(tmp, "trainer"))
+        t_fit = time.time()
+        result = TorchTrainer(
+            _trainer_fn, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="trainer", storage_path=tmp,
+                failure_config=FailureConfig(max_failures=1),
+                checkpoint_config=CheckpointConfig(num_to_keep=2)),
+        ).fit()
+        fit_s = time.time() - t_fit
+        with open(config["marker"]) as f:
+            t_kill = float(f.read())
+        hist = [m for m in result.metrics_history if "loss" in m]
+        first = [m for m in hist if not m["restarted"]]
+        second = [m for m in hist if m["restarted"]]
+        final = [m for m in result.metrics_history if m.get("final")]
+        launches = {k: sum(m["launches"][k] for m in hist)
+                    for k in ("k1", "k2", "k3")}
+        kept = sorted(d for d in os.listdir(config["run_dir"])
+                      if d.startswith("checkpoint_"))
+
+        # the kept step-8 checkpoint, read in the driver, gives the
+        # worker's step-9 loss
+        cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+        init_state, shard_state, train_step, data_dev = make_train_step(
+            cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
+            device=dev)
+        params, opt = shard_state(init_state(SEED))
+        t = time.monotonic()
+        tree = Checkpoint(result.checkpoint.path).load_state(
+            train_state_tree(params, opt))
+        load_train_state(tree, params, opt)
+        torch.cuda.synchronize()
+        driver_load_s = time.monotonic() - t
+        count = int(tree[1][0][0])
+        _, loss = train_step((params, opt), _train_tokens(data_dev))
+        driver_loss = float(loss)
+        del params, opt, tree
+        torch.cuda.empty_cache()
+
+        def steady(ms):  # each attempt's first step carries its warm-up
+            return [m["step_s"] for m in ms[1:]]
+
+        step_s = sorted(steady(first) + steady(second))
+        worker_loss = {m["step"]: m["loss"] for m in second}
+        out.update(
+            config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+                        batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                        steps=TRAINER_STEPS, ckpt_steps=TRAINER_CKPT_STEPS,
+                        kill_after=TRAINER_KILL_AFTER),
+            fit_s=fit_s,
+            worker_start_s=first[0]["t_cuda"] - t_fit,
+            worker_cuda_s=first[0]["t_cuda"] - first[0]["t_fn"],
+            kill_to_resumed_step_s=second[0]["t_step_end"] - t_kill,
+            kill_to_resumed_cuda_s=second[0]["t_cuda"] - t_kill,
+            restore_s=second[0]["restore_s"],
+            steps_first=[m["step"] for m in first],
+            steps_second=[m["step"] for m in second],
+            losses_first=[m["loss"] for m in first],
+            losses_second=[m["loss"] for m in second],
+            in_process_losses=train_losses[:TRAINER_STEPS],
+            step_ms_median=1e3 * step_s[len(step_s) // 2],
+            step_ms=[1e3 * x for x in step_s],
+            report_s={m["prev_report"][0]: m["prev_report"][1]
+                      for m in hist + final if m["prev_report"]},
+            in_process_step_ms=inproc and inproc["step_ms"],
+            launches=launches,
+            launches_per_step=[m["launches"] for m in hist],
+            devices=sorted({(m["device"], m["device_name"], m["visible"])
+                            for m in hist}),
+            kept=kept, driver_load_s=driver_load_s, driver_count=count,
+            driver_loss=driver_loss, worker_step9_loss=worker_loss.get(
+                TRAINER_STEPS))
+        print(json.dumps({"trainer": out}), flush=True)
+        print(f"trainer: cluster up {out['cluster_start_s']:.2f} s; worker "
+              f"up {out['worker_start_s']:.2f} s after fit() (its CUDA "
+              f"context {out['worker_cuda_s']:.2f} s of it); step "
+              f"{out['step_ms_median']:.1f} ms in the worker against "
+              f"{out['in_process_step_ms']} ms in process; kill to "
+              f"the resumed worker's first step "
+              f"{out['kill_to_resumed_step_s']:.2f} s; report blocks "
+              f"{out['report_s']} s", flush=True)
+    finally:
+        rt.shutdown()
+        os.environ.pop("RT_GPU_AUTODETECT", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"trainer: phase {out['phase_s']:.1f} s", flush=True)
+
+    L = TRAIN_CFG["n_layers"]
+    _check(out["steps_first"] == list(range(1, TRAINER_KILL_AFTER + 1))
+           and out["steps_second"] == list(
+               range(TRAINER_CKPT_STEPS[0] + 1, TRAINER_STEPS + 1)),
+           f"trainer: steps {out['steps_first']} then "
+           f"{out['steps_second']}: the restart did not resume from the "
+           f"step-{TRAINER_CKPT_STEPS[0]} checkpoint")
+    for m in hist:
+        _check(np.isfinite(m["loss"]) and abs(
+            m["loss"] - train_losses[m["step"] - 1]) <= TOL_TRAINER_LOSS,
+            f"trainer: step {m['step']} loss {m['loss']} against "
+            f"{train_losses[m['step'] - 1]} in process")
+        _check(m["launches"] == dict(k1=2 * L, k2=L, k3=L),
+               f"trainer: step {m['step']} launched {m['launches']}")
+    for a in first:
+        if a["step"] in worker_loss:
+            _check(abs(a["loss"] - worker_loss[a["step"]])
+                   <= TOL_TRAINER_RESUME,
+                   f"trainer: resumed step {a['step']} loss "
+                   f"{worker_loss[a['step']]} against the killed run's "
+                   f"{a['loss']}")
+    _check(all(d[0] == "cuda:0" and d[1] == torch.cuda.get_device_name(0)
+               for d in out["devices"]),
+           f"trainer: the worker ran on {out['devices']}")
+    # retention as the JAX package's CheckpointManager: with no score
+    # attribute, the earliest num_to_keep - 1 and the latest
+    _check(len(out["kept"]) == 2 and out["kept"][-1] == "checkpoint_%09d"
+           % TRAINER_CKPT_STEPS[-1], f"trainer: kept {out['kept']}")
+    _check(count == TRAINER_CKPT_STEPS[-1]
+           and abs(driver_loss - out["worker_step9_loss"])
+           <= TOL_TRAINER_RESUME,
+           f"trainer: the driver's restore of the kept checkpoint (count "
+           f"{count}) steps to {driver_loss}, the worker to "
+           f"{out['worker_step9_loss']}")
+    _check(not left, f"trainer: processes left after shutdown: {left}")
+    return out
+
+
+STAGES = 2                 # S: stage actors
+STAGES_MICRO = 4           # M: microbatches of TRAIN_BATCH / M sequences
+STAGES_STEPS = 3
+STAGES_CPUS = 4
+# a channel slot holds one stage's activation (2 x 2048 x 1024 bf16 = 8 MiB)
+# plus its pickle header: CompiledActorPipeline's default 8 MiB is too small
+STAGES_SLOT = 9 << 20
+STAGES_STORE_BYTES = 3 << 30   # 2 x the pipeline's rings, and the eager
+TOL_STAGES_LOSS = 1e-2     # absolute, against make_train_step in process
+TOL_STAGES_EAGER_COMPILED = 1e-3
+
+
+def phase_stages(dev):
+    """The flagship trained by pipeline-stage actors (see the module
+    docstring): ``ActorPipeline``, then ``CompiledActorPipeline``."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.train.pipeline_actors import (ActorPipeline,
+                                                     CompiledActorPipeline)
+
+    t_phase = time.monotonic()
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    # the in-process reference: no remat (a stage's backward recomputes
+    # its forward under autograd, unchecked)
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=False, loss_chunk=0, device=dev)
+    state = shard_state(init_state(SEED))
+    tokens = _train_tokens_np()
+    toks = torch.from_numpy(tokens).to(data_dev)
+    ref = []
+    for _ in range(STAGES_STEPS):
+        state, loss = train_step(state, toks)
+        ref.append(float(loss))
+    del state, toks
+    torch.cuda.empty_cache()
+
+    S, M = STAGES, STAGES_MICRO
+    per_stage = cfg.n_layers // S
+    each_gpu = torch.cuda.device_count() >= S
+    stage_options = [{"num_gpus": 1}] * S if each_gpu else None
+    placement = ("a num_gpus=1 lease a stage" if each_gpu else
+                 f"{S} stages on the one card without leases, a process "
+                 f"and a CUDA context each")
+    out = dict(config=dict(TRAIN_CFG, attention_impl="flash", remat=False,
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                           stages=S, microbatches=M, steps=STAGES_STEPS),
+               placement=placement, slot_size=STAGES_SLOT,
+               in_process_losses=ref)
+    print(f"stages: {placement}; channel slot_size {STAGES_SLOT} bytes",
+          flush=True)
+    os.environ["RT_GPU_AUTODETECT"] = "1"
+    rt.init(num_cpus=STAGES_CPUS,
+            system_config={"object_store_memory_bytes": STAGES_STORE_BYTES})
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        for name, make in (
+                ("eager", lambda: ActorPipeline(
+                    cfg, S, M, learning_rate=TRAIN_LR, seed=SEED,
+                    stage_options=stage_options)),
+                ("compiled", lambda: CompiledActorPipeline(
+                    cfg, S, M, learning_rate=TRAIN_LR, seed=SEED,
+                    slot_size=STAGES_SLOT, stage_options=stage_options))):
+            t = time.monotonic()
+            pipe = make()
+            try:
+                losses, step_s = [], []
+                for _ in range(STAGES_STEPS):
+                    t1 = time.monotonic()
+                    losses.append(pipe.train_step(tokens, timeout=600))
+                    step_s.append(time.monotonic() - t1)
+                if name == "compiled":
+                    pipe.teardown()
+                stats = pipe.stage_stats()
+            finally:
+                pipe.shutdown()
+            out[name] = dict(losses=losses, step_s=step_s,
+                             wall_s=time.monotonic() - t, stage_stats=stats)
+            print(json.dumps({f"stages_{name}": out[name]}), flush=True)
+    finally:
+        rt.shutdown()
+        os.environ.pop("RT_GPU_AUTODETECT", None)
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    out["launches"] = {k: sum(st[k] for name in ("eager", "compiled")
+                              for stage in out[name]["stage_stats"]
+                              for st in stage) for k in ("k1", "k2", "k3")}
+    mb, seq = TRAIN_BATCH // M, TRAIN_SEQ
+    want_bytes = 2 * (S - 1) * M * mb * seq * cfg.dim * 2
+    out["handoff_bytes_per_step"] = want_bytes
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"stages: step {np.median(out['eager']['step_s']):.3f} s eager, "
+          f"{np.median(out['compiled']['step_s']):.3f} s compiled; "
+          f"slot_size {STAGES_SLOT}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    want = dict(k1=2 * M * per_stage, k2=M * per_stage, k3=M * per_stage)
+    for name in ("eager", "compiled"):
+        got = out[name]
+        _check(all(np.isfinite(got["losses"])) and max(
+            abs(a - b) for a, b in zip(got["losses"], ref))
+            <= TOL_STAGES_LOSS,
+            f"stages: {name} losses {got['losses']} against {ref} in "
+            f"process")
+        for sid, stage in enumerate(got["stage_stats"]):
+            _check(len(stage) == STAGES_STEPS and all(
+                {k: st[k] for k in want} == want for st in stage),
+                f"stages: {name} stage {sid} launched {stage}, want {want} "
+                f"a step")
+        for i in range(STAGES_STEPS):
+            moved = sum(stage[i]["handoff_bytes"]
+                        for stage in got["stage_stats"])
+            _check(moved == want_bytes,
+                   f"stages: {name} step {i} handed on {moved} bytes, want "
+                   f"{want_bytes}")
+    _check(max(abs(a - b) for a, b in zip(out["eager"]["losses"],
+                                          out["compiled"]["losses"]))
+           <= TOL_STAGES_EAGER_COMPILED,
+           f"stages: eager {out['eager']['losses']} against compiled "
+           f"{out['compiled']['losses']}")
+    _check(not left, f"stages: processes left after shutdown: {left}")
+    return out
+
+
+def _path_launches(report, key):
+    """``key``'s launches in the trainer and stages phases' runs (the
+    train worker's steps, both pipelines' steps over their stages)."""
+    return sum(report[p]["launches"][key] for p in ("trainer", "stages")
+               if p in report)
+
+
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
     phase's timed steps; K4, K5a, K5b: the ring phase's timed training
-    steps, over its 4 ranks)."""
+    steps, over its 4 ranks), K1-K3 with the trainer and stages phases'
+    launches added."""
     line = []
     if "k1" in report and "serve" in report:
         row = next(r for r in report["k1"] if r["causal"] and (
@@ -3254,7 +3714,8 @@ def kernels_line(report):
             "name": "flash_fwd (K1)", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py:122",
-            "launches": report["serve"]["k1_launches"],
+            "launches": report["serve"]["k1_launches"]
+            + _path_launches(report, "k1"),
             "max_abs_err": max(r["err_o"] for r in report["k1"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3271,7 +3732,8 @@ def kernels_line(report):
                 "name": name, "route": "cuda",
                 "source": f"ray_tpu_torch/csrc/{src}",
                 "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
-                "launches": report["train"]["launches"][key],
+                "launches": report["train"]["launches"][key]
+                + _path_launches(report, key),
                 "max_abs_err": max(r[e] for r in report["k23"] for e in errs),
                 "ms": row[f"{key}_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row[f"{key}_bound_ms"],
@@ -3320,7 +3782,8 @@ def kernels_line(report):
 
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
-          "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime")
+          "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
+          "trainer", "stages")
 
 
 def main(argv=None) -> int:
@@ -3405,6 +3868,12 @@ def main(argv=None) -> int:
         report["rl"] = phase_rl(dev)
     if "runtime" in phases:
         report["runtime"] = phase_runtime(dev, report.get("serve"))
+    if "trainer" in phases:
+        torch.cuda.empty_cache()
+        report["trainer"] = phase_trainer(dev, report.get("train"))
+    if "stages" in phases:
+        torch.cuda.empty_cache()
+        report["stages"] = phase_stages(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

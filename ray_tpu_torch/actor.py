@@ -69,9 +69,9 @@ class ActorMethod:
     def bind(self, *args, **kwargs):
         """Build a DAG node instead of executing (reference: actor.py bind —
         the ray.dag authoring surface)."""
-        raise NotImplementedError(
-            "ray_tpu_torch has no dag/ yet (ray_tpu/dag): ROADMAP Queue 1, "
-            "M6c")
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

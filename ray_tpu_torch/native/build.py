@@ -6,7 +6,7 @@ invocation keeps the loop fast and hermetic). Artifacts land in
 ray_tpu_torch/native/_build/ and are rebuilt only when sources change. The
 JAX package's sanitizer builds (ASan, TSan) have no counterpart here: the
 port runs no sanitizer suite. ``shm_channel`` is the compiled DAG's
-channel, built once the port's ``dag/`` uses it (ROADMAP M6c).
+channel (``experimental/channel.py``).
 """
 
 from __future__ import annotations

@@ -35,9 +35,8 @@ are summed over the data axes (dp, fsdp, sp, as ``make_train_step`` sums
 them); those of ``tok_emb``, ``norm`` and ``lm_head``, whole on every pp
 rank but used by stage 0 or the last stage alone, over the data axes and
 pp, so every pp replica takes the same AdamW step, as JAX sums their
-cotangents over pp. The actor pipeline (``ray_tpu/train/
-pipeline_actors.py``) needs the actor runtime, which the port does not
-have yet.
+cotangents over pp. The actor pipeline, stages as actors of the port's
+runtime, is ``train/pipeline_actors.py``.
 """
 
 from __future__ import annotations

@@ -41,18 +41,23 @@ from __future__ import annotations
 import io
 import json
 import math
+import sys
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
-from ray_tpu_torch.models.convert import nest_map
-from ray_tpu_torch.parallel.mesh import (P, block_bounds, global_shapes,
-                                        is_split, shard_of)
 from ray_tpu_torch.train._storage import get_storage
+
+
+def _is_tensor(x) -> bool:
+    """``torch.is_tensor`` without importing torch: the train controller
+    uses this module in a driver that holds no tensor and imports no
+    torch; where torch was never imported, nothing is a tensor."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.is_tensor(x)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +116,7 @@ def _leaf_specs(tree, specs) -> Dict[str, Any]:
                      if isinstance(spec, (list, tuple)) else spec,
                      f"{prefix}/{i}")
         elif spec is missing:
-            if torch.is_tensor(node):
+            if _is_tensor(node):
                 raise ValueError(f"no spec for the tensor leaf "
                                  f"{prefix or '/'!r}")
             out[prefix or "/"] = None
@@ -127,9 +132,11 @@ def _split_leaves(state, specs, mesh) -> Dict[str, Any]:
     under ``specs``: the leaves a rank holds only a block of."""
     if specs is None or mesh is None:
         return {}
+    from ray_tpu_torch.parallel.mesh import is_split
+
     flat = _flatten_with_paths(state)
     return {path: spec for path, spec in _leaf_specs(state, specs).items()
-            if spec is not None and torch.is_tensor(flat[path])
+            if spec is not None and _is_tensor(flat[path])
             and is_split(spec, mesh)}
 
 
@@ -139,6 +146,8 @@ def global_leaf_shapes(state, specs, mesh) -> Dict[str, tuple]:
     records. One all-reduce for each combination of axes
     (``parallel.mesh.global_shapes``): every rank calls it together. Pass
     the result as ``shapes`` to save from some of the ranks alone."""
+    from ray_tpu_torch.parallel.mesh import global_shapes
+
     split = _split_leaves(state, specs, mesh)
     flat = _flatten_with_paths(state)
     return dict(zip(split, global_shapes([flat[p] for p in split],
@@ -149,7 +158,9 @@ def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that owns its bytes: on the CPU
     ``.numpy()`` would alias a tensor that the train step updates in
     place. bf16 is widened to fp32 (numpy has no bf16), exactly."""
-    if torch.is_tensor(leaf):
+    if _is_tensor(leaf):
+        import torch
+
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -184,6 +195,8 @@ def snapshot_with_meta(state, specs=None, mesh=None, shapes=None):
         out[path] = _to_host(leaf)
         if path not in split:
             continue
+        from ray_tpu_torch.parallel.mesh import block_bounds
+
         index = block_bounds(shapes[path], split[path], mesh)
         if [hi - lo for lo, hi in index] != list(out[path].shape):
             raise ValueError(
@@ -202,7 +215,9 @@ def _place(ref_leaf, new_leaf):
     its type; anything else is the restored array."""
     if new_leaf is ref_leaf:
         return ref_leaf
-    if torch.is_tensor(ref_leaf):
+    if _is_tensor(ref_leaf):
+        import torch
+
         new = torch.as_tensor(np.asarray(new_leaf)) \
             if not torch.is_tensor(new_leaf) else new_leaf
         if tuple(new.shape) != tuple(ref_leaf.shape):
@@ -227,8 +242,12 @@ def _place_onto(skeleton, rebuilt):
 
 def _block_of(whole: np.ndarray, ref_leaf, spec, mesh):
     """The skeleton's block of a whole restored leaf (``shard_of``)."""
-    if not torch.is_tensor(ref_leaf) or spec is None or mesh is None:
+    if not _is_tensor(ref_leaf) or spec is None or mesh is None:
         return whole
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import shard_of
+
     return shard_of(torch.from_numpy(np.asarray(whole)), spec, mesh)
 
 
@@ -317,6 +336,8 @@ class Checkpoint:
                 placed[path] = _place(ref_leaf, _block_of(
                     flat[path], ref_leaf, spec, mesh))
                 continue
+            from ray_tpu_torch.parallel.mesh import P, block_bounds
+
             needed = block_bounds(shards_meta[path]["global_shape"],
                                   spec or P(), mesh)
             block = _from_regions(partial[path], needed)
@@ -448,7 +469,7 @@ class AsyncCheckpointWriter:
 # ---------------------------------------------------------------------------
 
 
-def train_state_tree(params, optimizer: torch.optim.Optimizer):
+def train_state_tree(params, optimizer: "torch.optim.Optimizer"):
     """``(params, ((count, mu, nu), (), ()))``: the port's parameters and
     torch AdamW as ``optax.adamw``'s state pytree, so a checkpoint of it
     has the JAX package's keys (``/0/...``, ``/1/0/0``, ``/1/0/1/...``,
@@ -457,6 +478,10 @@ def train_state_tree(params, optimizer: torch.optim.Optimizer):
     writes them in place); ``count`` is an int32 0-dim tensor. An
     optimizer that has not stepped (torch creates its state at the first
     step) gives zero moments and count 0, as ``optax.adamw(...).init``."""
+    import torch
+
+    from ray_tpu_torch.models.convert import nest_map
+
     state = optimizer.state
     counts = [int(state[p]["step"]) for p in _leaves(params)
               if p in state and "step" in state[p]]
@@ -474,10 +499,12 @@ def train_state_specs(specs):
     """The specs of ``train_state_tree``'s tree from the parameters' specs
     (``param_specs(cfg)``, ``pipeline_param_specs(cfg)``): each moment
     placed as its parameter, the count whole."""
+    from ray_tpu_torch.parallel.mesh import P
+
     return specs, ((P(), specs, specs), (), ())
 
 
-def load_train_state(tree, params, optimizer: torch.optim.Optimizer):
+def load_train_state(tree, params, optimizer: "torch.optim.Optimizer"):
     """Put a restored ``train_state_tree`` tree back: each parameter and
     its AdamW state (``step``, ``exp_avg``, ``exp_avg_sq``) copied in place
     (the optimizer holds the parameters by identity), the state built for
@@ -485,6 +512,8 @@ def load_train_state(tree, params, optimizer: torch.optim.Optimizer):
     device and in its dtype. ``step`` is fp32 on the parameter's device
     for a fused (or capturable) optimizer and on the CPU otherwise, as
     torch makes it. Returns (params, optimizer)."""
+    import torch
+
     saved, ((count, mu, nu), *_) = tree
     count = float(np.asarray(count.cpu() if torch.is_tensor(count)
                              else count))

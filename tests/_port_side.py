@@ -718,7 +718,13 @@ def import_check(root):
         "assert len(names) >= 16, names\n"
         "assert {'ray_tpu_torch.parallel.mesh', "
         "'ray_tpu_torch.parallel.ring_attention', "
-        "'ray_tpu_torch.parallel.ulysses'} <= set(names), names\n"
+        "'ray_tpu_torch.parallel.ulysses', 'ray_tpu_torch.train', "
+        "'ray_tpu_torch.train.trainer', "
+        "'ray_tpu_torch.train.pipeline_actors', 'ray_tpu_torch.dag', "
+        "'ray_tpu_torch.dag._compiled', "
+        "'ray_tpu_torch.experimental.channel', "
+        "'ray_tpu_torch.cluster_utils', "
+        "'ray_tpu_torch.util.placement_group'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1167,3 +1173,50 @@ def engine_metrics(shape, tree, ecfg, prompts, max_tokens):
         return mid, _gauges()
 
     return asyncio.run(main())
+
+
+# -- train/pipeline_actors.py ------------------------------------------------
+
+
+def pipeline_actors(shape, tree, tokens, lr, steps, n_stages, n_micro):
+    """``ActorPipeline`` then ``CompiledActorPipeline`` on a CPU cluster of
+    the port, from the carried weights (``tree``, None: the port's
+    ``init_params`` from seed 0): {"eager" / "compiled": (losses of
+    ``steps`` steps on ``tokens``, each stage's ``stats``)}."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train.pipeline_actors import (ActorPipeline,
+                                                     CompiledActorPipeline)
+
+    cfg = _cfg(shape)
+    rt.init(num_cpus=4)
+    try:
+        out = {}
+        for name, klass in (("eager", ActorPipeline),
+                            ("compiled", CompiledActorPipeline)):
+            pipe = klass(cfg, n_stages, n_micro, learning_rate=lr, seed=0,
+                         params=tree, device="cpu")
+            try:
+                losses = [pipe.train_step(tokens, timeout=300)
+                          for _ in range(steps)]
+                if name == "compiled":
+                    pipe.teardown()
+                out[name] = (losses, pipe.stage_stats())
+            finally:
+                pipe.shutdown()
+        return out
+    finally:
+        rt.shutdown()
+
+
+def train_from_seed(shape, tokens, lr, steps, seed=0):
+    """Losses of the port's ``make_train_step`` from ``init_params(seed)``."""
+    cfg = _cfg(shape)
+    init_state, shard_state, train_step, dev = tl.make_train_step(
+        cfg, learning_rate=lr, device="cpu")
+    state = shard_state(init_state(seed))
+    toks = _T(tokens).to(dev)
+    losses = []
+    for _ in range(steps):
+        state, loss = train_step(state, toks)
+        losses.append(float(loss))
+    return losses
