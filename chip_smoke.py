@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs eighteen phases and fails (exit 1) if any check fails:
+runs nineteen phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -167,6 +167,40 @@ runs eighteen phases and fails (exit 1) if any check fails:
             gradients); 64 MiB of activations and gradients handed on a
             step. Step s of each. ``k1``/``k23`` hold K1-K3 at the stage
             microbatch (2, 8, 4, 2048, 128).
+* apps    — the port's serve library and LLM apps on its cluster
+            (``init(num_cpus=8)``, the GPU detected), Llama-3-8B at full
+            width and depth (random bf16 weights from the seed) in every
+            process, the serve phase's engine config, greedy decoding, 4
+            prompts of the serve phase's lengths (37 / 130 / 300 / 511 byte
+            tokens), a urllib client. ``build_openai_app`` behind
+            ``serve.start(http_port=0)``: one batched POST of the 4 prompts
+            gives the in-process ``LLMServer``'s texts, finish reasons and
+            completion-token count, one SSE stream its chunks and the
+            batch's text, ending with [DONE]. ``build_pd_app`` (1 prefill
+            worker, 1 decode engine): each response's text and completion
+            tokens, and the token ids the decode engine streamed, the
+            in-process ``PagedEngine``'s; K1 32 a prompt in the prefill
+            worker, 0 in the decode engine; a repeated prompt a
+            prefill-cache hit (no launch) on the same decode replica; each
+            hand-off's KV bytes 2 x 32 x blocks x 16 x 8 x 128 x 2 (64 MiB
+            at 511 tokens).
+            ``build_dp_app`` (dp 2, the prompts at once): both ranks answer,
+            the same texts, counts and ids, 128 K1 launches over the two
+            engines.
+            Then a deployment of this script's asking for 2 one-GPU
+            replicas (``min_replicas=2``): on one card one runs (seeing one
+            device), the other waits and the controller publishes its
+            {"GPU": 1} demand; on two or more both run. Each app is deleted
+            before the next, and the actors its ingress made are killed
+            (as in the JAX package, they outlive the replica), so at most
+            three 8B copies share the card, none leased. No process of the cluster is left
+            after ``serve.shutdown()`` and ``shutdown()``. Printed: each
+            app's start s, TTFT p50 through HTTP SSE and the PD and DP
+            ingresses (one-token requests) beside the runtime phase's actor
+            and the serve phase's engine, DP tokens/s, the PD hand-off's
+            bytes and its share of the TTFT. The counts come from
+            ``_apps_install``, which every app process runs as it
+            unpickles its ``LLMConfig``.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -3693,11 +3727,576 @@ def phase_stages(dev):
     return out
 
 
+# the apps phase: the port's serve library and LLM apps on the card
+APPS_CPUS = 8
+APPS_STORE_BYTES = 1 << 30     # the prefills' KV until the ingress drops it
+APPS_INIT_TIMEOUT_S = 300.0    # a replica's construction gate: an 8B build
+APPS_LEASE_WAIT_S = 15.0
+
+
+def _apps_prompts(seed):
+    """Strings whose byte tokens (BOS and one per byte) have the serve
+    phase's lengths."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return ["".join(rng.choice(letters, size=n - 1)) for n in SERVE_PROMPTS]
+
+
+def _post(url, payload):
+    """A JSON POST through urllib: the open response."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=600)
+
+
+def _post_json(url, payload):
+    with _post(url, payload) as r:
+        return json.loads(r.read())
+
+
+def _sse(url, payload):
+    """An SSE request: (its data events, seconds to the first event)."""
+    t0 = time.monotonic()
+    first, events = None, []
+    with _post(url, payload) as r:
+        _check(r.headers.get("Content-Type", "").startswith(
+            "text/event-stream"), f"apps: not an event stream: {r.headers}")
+        for raw in r:
+            line = raw.decode().rstrip("\r\n")
+            if line.startswith("data: "):
+                if first is None:
+                    first = time.monotonic() - t0
+                events.append(line[len("data: "):])
+    return events, first
+
+
+def _apps_config(fields):
+    """Unpickles an ``LLMConfig`` of the apps phase: first installs
+    chip_smoke's counters in this process (``_apps_install``)."""
+    _apps_install()
+    from ray_tpu_torch.llm import LLMConfig
+
+    return LLMConfig(**fields)
+
+
+def _apps_config_reduce(self):
+    import dataclasses
+
+    return (_apps_config, ({f.name: getattr(self, f.name)
+                            for f in dataclasses.fields(self)},))
+
+
+def _apps_record():
+    """This process's record of what the apps phase reads (made by
+    ``_apps_install``). Looked up at each call: the classes an ingress
+    hands its actors travel by value, with these functions in them."""
+    import ray_tpu_torch.llm as llm
+
+    return llm._chip_smoke_record
+
+
+def _apps_report(device, zero):
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    n = fa.flash_fwd_launches
+    if zero:
+        fa.flash_fwd_launches = 0
+    return dict(_apps_record(), pid=os.getpid(), k1=n, device=str(device),
+                device_name=torch.cuda.get_device_name(),
+                dp_rank=os.environ.get("RT_DP_RANK"))
+
+
+def _apps_install():
+    """chip_smoke's counters in a process of the apps phase. Every process
+    the apps give an ``LLMConfig`` (a replica, a prefill worker, an
+    engine) unpickles it through ``_apps_config``, which calls this first,
+    so the port's own classes, deployed by its own builders, run there
+    with what this script reads added: an ``apps_report`` method on each
+    (K1's launch count in the process, the KV bytes its prefills handed
+    on, when each engine stream started and what it produced, when its
+    model was built, its device) and nothing changed in what they
+    compute. The config's pickling is hooked here too, so the actors an
+    ingress makes get the counters."""
+    import ray_tpu_torch.llm as llm
+    from ray_tpu_torch.llm import _engine
+    from ray_tpu_torch.llm import serving_patterns as sp
+
+    if hasattr(llm, "_chip_smoke_record"):
+        return
+    llm._chip_smoke_record = {"built_at": None, "streams": [],
+                              "handoffs": []}
+    llm.LLMConfig.__reduce__ = _apps_config_reduce
+
+    def timed_init(cls):
+        init = cls.__init__
+
+        def __init__(self, *a, **kw):
+            import torch
+
+            init(self, *a, **kw)
+            torch.cuda.synchronize()
+            _apps_record()["built_at"] = time.monotonic()
+
+        cls.__init__ = __init__
+
+    engine_stream = _engine.PagedEngine.generate_stream
+
+    async def counted_engine_stream(self, prompt_ids, **opts):
+        r = dict(prompt=list(prompt_ids), tokens=[],
+                 prefilled=opts.get("prefilled") is not None,
+                 start=time.monotonic())
+        _apps_record()["streams"].append(r)
+        async for t in engine_stream(self, prompt_ids, **opts):
+            r["tokens"].append(int(t))
+            yield t
+
+    _engine.PagedEngine.generate_stream = counted_engine_stream
+    worker = sp.PrefillWorker._cls
+    prefill = worker.prefill
+
+    def counted_prefill(self, prompt_ids):
+        t0 = time.monotonic()
+        out = prefill(self, prompt_ids)
+        _apps_record()["handoffs"].append(dict(
+            tokens=len(prompt_ids), start=t0, end=time.monotonic(),
+            bytes=sum(out[k].numel() * out[k].element_size()
+                      for k in ("k", "v")),
+            k_shape=list(out["k"].shape), k_dtype=str(out["k"].dtype),
+            k_device=str(out["k"].device)))
+        return out
+
+    worker.prefill = counted_prefill
+    for cls in (llm.LLMServer, worker, llm.LLMEngine._cls):
+        timed_init(cls)
+    llm.LLMServer.apps_report = lambda self, zero=False: _apps_report(
+        self.params["tok_emb"].device, zero)
+    worker.apps_report = lambda self, zero=False: _apps_report(
+        self.device, zero)
+
+    async def engine_report(self, zero=False):
+        return _apps_report(self.engine.device, zero)
+
+    llm.LLMEngine._cls.apps_report = engine_report
+
+    async def gather(actors, zero):
+        return [await a.apps_report.remote(zero) for a in actors]
+
+    async def pd_report(self, zero=False):
+        return dict(prefill=await gather(self.prefill_workers, zero),
+                    decode=await gather(self.decoders, zero))
+
+    async def dp_report(self, zero=False):
+        return dict(engines=await gather(self.engines, zero))
+
+    sp.PrefillDecodeIngress.apps_report = pd_report
+    sp.DPEngineGroup.apps_report = dp_report
+
+
+class _LeaseProbe:
+    """A 1-GPU replica of chip_smoke's own: the devices its lease left it."""
+
+    def __call__(self, _x=None):
+        import torch
+
+        return dict(pid=os.getpid(),
+                    cuda_visible_devices=os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    device_count=torch.cuda.device_count())
+
+
+def _ttft_p50(samples):
+    return sorted(samples)[len(samples) // 2]
+
+
+def _running(pid: int) -> bool:
+    """Whether ``pid`` is a live process (a zombie, which holds no memory
+    and has no command line, is not)."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return bool(f.read())
+    except OSError:
+        return False
+
+
+def _app_actors():
+    """The ids of every actor of the cluster."""
+    from ray_tpu_torch.util.state import list_actors
+
+    return {a["actor_id"] for a in list_actors()}
+
+
+def _end_app(name, before, pids, what, timeout=60.0):
+    """``serve.delete`` an app, then kill the unnamed actors its ingress
+    made (those not in ``before``): as in the JAX package, they outlive
+    the replica that made them. Gate: the processes ``pids`` have exited,
+    so their models no longer hold the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util.state import list_actors
+
+    serve.delete(name)
+    cw = rt.get_core_worker()
+    for a in list_actors():
+        if (a["actor_id"] not in before and not a["name"]
+                and a["state"] != "DEAD"):
+            cw.run_sync(cw.kill_actor(bytes.fromhex(a["actor_id"]), True),
+                        30)
+    deadline = time.monotonic() + timeout
+    while any(map(_running, pids)) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in pids if _running(p)]
+    _check(not left, f"apps: {what} still running after serve.delete: "
+           f"{left}")
+
+
+def phase_apps(report):
+    """The port's serve library and LLM apps on the card (see the module
+    docstring); ``report``: the earlier phases' numbers, printed beside
+    these."""
+    import asyncio
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.protocol import ResourceSet
+    from ray_tpu_torch.llm import (EOS, ByteTokenizer, LLMConfig, LLMServer,
+                                   build_openai_app)
+    from ray_tpu_torch.llm import serving_patterns as sp
+    from ray_tpu_torch.llm._engine import EngineConfig, PagedEngine
+
+    out = {}
+    tok = ByteTokenizer()
+    model, overrides = RUNTIME_MODEL
+    config = LLMConfig(
+        model_id=f"{model}-random", model=model, seed=SEED,
+        max_new_tokens=SERVE_MAX_TOKENS,
+        model_overrides={k: getattr(torch, v) if k.endswith("dtype") else v
+                         for k, v in overrides.items()})
+    prompts = _apps_prompts(SEED + 2)
+    ttft_prompts = _apps_prompts(SEED + 3)
+    ids = [tok.encode(p) for p in prompts]
+    _check([len(i) for i in ids] == list(SERVE_PROMPTS),
+           f"apps: prompt lengths {[len(i) for i in ids]}")
+
+    # the in-process references on the same weights: LLMServer (what the
+    # openai app's replica runs) and the serve phase's PagedEngine
+    t = time.monotonic()
+    ref_server = LLMServer(config)
+    cfg = ref_server.cfg
+    want_batch = ref_server({"prompt": prompts,
+                             "max_tokens": SERVE_MAX_TOKENS})
+    # the chunks' choices (an SSE event carries a chunk of text: a token
+    # that is not a byte adds none), the finish reason in the last
+    want_stream = [c["choices"] for c in ref_server(
+        {"prompt": prompts[0], "max_tokens": SERVE_MAX_TOKENS,
+         "stream": True})]
+    eng = PagedEngine(cfg, ref_server.params, EngineConfig(**RUNTIME_ECFG),
+                      eos_id=EOS)
+
+    async def engine_all():
+        async def one(i):
+            return [int(x) async for x in eng.generate_stream(
+                i, max_tokens=SERVE_MAX_TOKENS, temperature=0.0, seed=SEED)]
+        return await asyncio.gather(*[one(i) for i in ids])
+
+    ref_engine = asyncio.run(engine_all())
+    eng._worker.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    out["reference_s"] = time.monotonic() - t
+    print(f"apps: in-process references in {out['reference_s']:.2f} s; "
+          f"dense tokens {want_batch['usage']['completion_tokens']} in all, "
+          f"engine tokens {[len(x) for x in ref_engine]}, byte tokens "
+          f"among them {sum(t < 256 for x in ref_engine for t in x)}",
+          flush=True)
+
+    os.environ["RT_GPU_AUTODETECT"] = "1"
+    t0 = time.monotonic()
+    rt.init(num_cpus=APPS_CPUS, system_config={
+        "object_store_memory_bytes": APPS_STORE_BYTES,
+        "serve_replica_init_timeout_s": APPS_INIT_TIMEOUT_S})
+    out["cluster_start_s"] = time.monotonic() - t0
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    # every LLMConfig pickled here carries chip_smoke's counters to the
+    # process that unpickles it (_apps_install); nothing else is changed
+    LLMConfig.__reduce__ = _apps_config_reduce
+    try:
+        # 1. build_openai_app over HTTP: batched, then SSE-streamed
+        t = time.monotonic()
+        handle = build_openai_app(config, deployment_name="v1")
+        base = serve.start(http_port=0)
+        rep = handle.method("apps_report").remote(True).result(timeout=120)
+        openai = dict(start_s=time.monotonic() - t,
+                      replica_built_s=rep["built_at"] - t, base=base,
+                      device=rep["device"], device_name=rep["device_name"])
+        t = time.monotonic()
+        got = _post_json(f"{base}/v1", {"prompt": prompts,
+                                        "max_tokens": SERVE_MAX_TOKENS})
+        openai["batch_s"] = time.monotonic() - t
+        events, _ = _sse(f"{base}/v1", {"prompt": prompts[0],
+                                         "max_tokens": SERVE_MAX_TOKENS,
+                                         "stream": True})
+        rep = handle.method("apps_report").remote().result(timeout=120)
+        res = got["result"]
+        chunks = [json.loads(e) for e in events[:-1]]
+        streamed = "".join(c["choices"][0]["text"] for c in chunks)
+        ttfts = [_sse(f"{base}/v1", {"prompt": p, "max_tokens": 1,
+                                     "stream": True})[1]
+                 for p in ttft_prompts]
+        openai.update(
+            k1_launches=rep["k1"], sse_events=len(events),
+            texts_bytes=[len(c["text"].encode()) for c in res["choices"]],
+            completion_tokens=res["usage"]["completion_tokens"],
+            sse_ttft_s=ttfts, sse_ttft_p50_s=_ttft_p50(ttfts))
+        out["openai"] = openai
+        print(json.dumps({"apps_openai": openai}), flush=True)
+        _check(rep["device"].startswith("cuda"),
+               f"apps: the openai replica's model is on {rep['device']}")
+        _check([c["text"] for c in res["choices"]]
+               == [c["text"] for c in want_batch["choices"]]
+               and [c["finish_reason"] for c in res["choices"]]
+               == [c["finish_reason"] for c in want_batch["choices"]],
+               f"apps: the HTTP batch's texts differ from the in-process "
+               f"LLMServer's: {res['choices']} vs {want_batch['choices']}")
+        _check(res["usage"]["completion_tokens"]
+               == want_batch["usage"]["completion_tokens"],
+               f"apps: the HTTP batch has {res['usage']['completion_tokens']}"
+               f" completion tokens, the in-process LLMServer "
+               f"{want_batch['usage']['completion_tokens']}")
+        _check(events[-1] == "[DONE]"
+               and [c["choices"] for c in chunks] == want_stream
+               and streamed == res["choices"][0]["text"],
+               f"apps: the SSE stream's chunks {[c['choices'] for c in chunks]}"
+               f" differ from the in-process LLMServer's {want_stream} or "
+               f"from the batch")
+        serve.delete("v1")
+
+        # 2. build_pd_app: a prefill worker's KV to a decode engine
+        before = _app_actors()
+        t = time.monotonic()
+        handle = sp.build_pd_app(config, num_prefill=1, num_decode=1,
+                                 deployment_name="pd",
+                                 engine_config=RUNTIME_ECFG)
+        rep = handle.method("apps_report").remote(True).result(timeout=600)
+        pd = dict(start_s=time.monotonic() - t,
+                  prefill_built_s=rep["prefill"][0]["built_at"] - t,
+                  decode_built_s=rep["decode"][0]["built_at"] - t,
+                  devices=[rep["prefill"][0]["device"],
+                           rep["decode"][0]["device"]])
+        t = time.monotonic()
+        refs = [handle.remote({"prompt": p}) for p in prompts]
+        outs = [r.result(timeout=600) for r in refs]
+        pd["wall_s"] = time.monotonic() - t
+        first = handle.method("apps_report").remote().result(timeout=120)
+        again = handle.remote({"prompt": prompts[-1]}).result(timeout=600)
+        rep = handle.method("apps_report").remote(True).result(timeout=120)
+        handoffs = rep["prefill"][0]["handoffs"]
+        bs = RUNTIME_ECFG["kv_block_size"]
+        # k and v: layers x blocks x block tokens x kv heads x hd, bf16
+        want_bytes = {n: 2 * cfg.n_layers * -(-n // bs) * bs
+                      * cfg.n_kv_heads * cfg.head_dim * 2
+                      for n in SERVE_PROMPTS}
+        decoded = rep["decode"][0]["streams"]
+        ttfts = []
+        for p in ttft_prompts:
+            t = time.monotonic()
+            handle.remote({"prompt": p, "max_tokens": 1}).result(timeout=600)
+            ttfts.append(time.monotonic() - t)
+        late = handle.method("apps_report").remote().result(timeout=120)
+        # the TTFT requests' prefills and decode streams (after the first
+        # four prompts and the repeated one)
+        late_h = late["prefill"][0]["handoffs"][len(prompts):]
+        late_s = late["decode"][0]["streams"][len(prompts) + 1:]
+        gaps = [s["start"] - h["end"] for h, s in zip(late_h, late_s)]
+        shares = [g / ttft for g, ttft in zip(gaps, ttfts)]
+        pd.update(
+            k1_prefill=first["prefill"][0]["k1"],
+            k1_decode=first["decode"][0]["k1"],
+            k1_prefill_after_hit=rep["prefill"][0]["k1"],
+            k1_decode_after_hit=rep["decode"][0]["k1"],
+            handoff_bytes={h["tokens"]: h["bytes"] for h in handoffs},
+            handoff_k_shape=max(h["k_shape"] for h in handoffs),
+            handoff_s=gaps, prefill_s=[h["end"] - h["start"] for h in late_h],
+            ttft_s=ttfts, ttft_p50_s=_ttft_p50(ttfts),
+            handoff_share_of_ttft=shares,
+            cache_hits=again["usage"]["prefill_cache_hits"],
+            decode_replicas=[o["usage"]["decode_replica"] for o in outs]
+            + [again["usage"]["decode_replica"]])
+        out["pd"] = pd
+        print(json.dumps({"apps_pd": pd}), flush=True)
+        _check(all(d.startswith("cuda") for d in pd["devices"]),
+               f"apps: the PD actors' models are on {pd['devices']}")
+        # the decode engine's streams, by prompt (the first four in the
+        # order the ingress reached it, then the repeated prompt's)
+        by_prompt = {tuple(d["prompt"]): d for d in decoded[:len(prompts)]}
+        for i, (o, want) in enumerate(zip(outs, ref_engine)):
+            d = by_prompt.get(tuple(ids[i]), {})
+            _check(o["choices"][0]["text"] == tok.decode(want)
+                   and o["usage"]["completion_tokens"] == len(want)
+                   and d.get("tokens") == want and d.get("prefilled"),
+                   f"apps: PD request {i} ({SERVE_PROMPTS[i]} tokens) "
+                   f"differs from the in-process engine's greedy tokens")
+        _check(pd["k1_prefill"] == cfg.n_layers * len(prompts)
+               and pd["k1_decode"] == 0,
+               f"apps: K1 launched {pd['k1_prefill']} times in the prefill "
+               f"worker and {pd['k1_decode']} in the decode engine, want "
+               f"{cfg.n_layers * len(prompts)} and 0")
+        _check(pd["k1_prefill_after_hit"] == pd["k1_prefill"]
+               and pd["k1_decode_after_hit"] == 0 and pd["cache_hits"] == 1
+               and len(handoffs) == len(prompts)
+               and decoded[-1]["prompt"] == ids[-1]
+               and decoded[-1]["tokens"] == ref_engine[-1]
+               and again["usage"]["completion_tokens"] == len(ref_engine[-1])
+               and pd["decode_replicas"][-1] == pd["decode_replicas"][-2],
+               f"apps: the repeated prompt was not a prefill-cache hit on "
+               f"the same decode replica: {pd}")
+        _check(pd["handoff_bytes"] == want_bytes,
+               f"apps: hand-off bytes {pd['handoff_bytes']}, want "
+               f"{want_bytes}")
+        _end_app("pd", before, [r["pid"] for r in late["prefill"]
+                                + late["decode"]],
+                 "the PD app's prefill worker and decode engine")
+
+        # 3. build_dp_app: two engines, the prompts sent at once
+        before = _app_actors()
+        t = time.monotonic()
+        handle = sp.build_dp_app(config, dp_size=2, deployment_name="dp",
+                                 engine_config=RUNTIME_ECFG)
+        rep = handle.method("apps_report").remote(True).result(timeout=600)
+        dp = dict(start_s=time.monotonic() - t,
+                  engines_built_s=[e["built_at"] - t
+                                   for e in rep["engines"]],
+                  devices=[e["device"] for e in rep["engines"]])
+        t = time.monotonic()
+        refs = [handle.remote({"prompt": p}) for p in prompts]
+        outs = [r.result(timeout=600) for r in refs]
+        wall = time.monotonic() - t
+        rep = handle.method("apps_report").remote().result(timeout=120)
+        streams = {tuple(s["prompt"]): s["tokens"]
+                   for e in rep["engines"] for s in e["streams"]}
+        ttfts = []
+        for p in ttft_prompts:
+            t = time.monotonic()
+            handle.remote({"prompt": p, "max_tokens": 1}).result(timeout=600)
+            ttfts.append(time.monotonic() - t)
+        n_tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+        dp.update(k1_per_engine=[e["k1"] for e in rep["engines"]],
+                  ranks=[o["usage"]["dp_rank"] for o in outs],
+                  env_ranks=sorted(e["dp_rank"] for e in rep["engines"]),
+                  wall_s=wall, tokens_out=n_tokens,
+                  tokens_per_s=n_tokens / wall, ttft_s=ttfts,
+                  ttft_p50_s=_ttft_p50(ttfts))
+        out["dp"] = dp
+        print(json.dumps({"apps_dp": dp}), flush=True)
+        _check(all(d.startswith("cuda") for d in dp["devices"]),
+               f"apps: the DP engines' models are on {dp['devices']}")
+        _check(set(dp["ranks"]) == {0, 1} and dp["env_ranks"] == ["0", "1"],
+               f"apps: DP ranks seen {dp['ranks']}, engines' "
+               f"{dp['env_ranks']}")
+        for i, (o, want) in enumerate(zip(outs, ref_engine)):
+            _check(o["choices"][0]["text"] == tok.decode(want)
+                   and o["usage"]["completion_tokens"] == len(want)
+                   and streams.get(tuple(ids[i])) == want,
+                   f"apps: DP request {i} ({SERVE_PROMPTS[i]} tokens) "
+                   f"differs from the in-process engine's greedy tokens")
+        _check(sum(dp["k1_per_engine"]) == cfg.n_layers * len(prompts),
+               f"apps: K1 launched {dp['k1_per_engine']} times in the DP "
+               f"engines, want {cfg.n_layers * len(prompts)} in all")
+        _end_app("dp", before, [e["pid"] for e in rep["engines"]],
+                 "the DP app's engines")
+        out["launches"] = {"k1": pd["k1_prefill"] + pd["k1_decode"]
+                           + sum(dp["k1_per_engine"])
+                           + out["openai"]["k1_launches"]}
+
+        # 4. a GPU lease through serve: 2 one-GPU replicas. The controller
+        # places what fits and publishes demand for the rest on its
+        # autoscaling path; a fixed num_replicas=2 would instead hold the
+        # deploy on the second replica until the init timeout, then fail
+        n_gpus = torch.cuda.device_count()
+        lease = serve.run(serve.Deployment(
+            _LeaseProbe, "lease", num_replicas=1,
+            autoscaling_config={"min_replicas": 2, "max_replicas": 2},
+            ray_actor_options={"num_gpus": 1}))
+        seen = {}
+        deadline = time.monotonic() + 60
+        while len(seen) < min(2, n_gpus) and time.monotonic() < deadline:
+            r = lease.remote().result(timeout=60)
+            seen[r["pid"]] = r
+            lease._refresh(force=True)
+        demand, status = [], {}
+        deadline = time.monotonic() + APPS_LEASE_WAIT_S
+        while time.monotonic() < deadline:
+            status = serve.status()["lease"]
+            cw = rt.get_core_worker()
+            load = cw.run_sync(cw.control.call("get_cluster_load", {}), 30)
+            demand = [ResourceSet.from_wire(s).to_dict()
+                      for s in load.get("reported_demand", [])]
+            if n_gpus >= 2 or demand:
+                break
+            time.sleep(0.5)
+        out["lease"] = dict(gpus=n_gpus, replicas_seen=list(seen.values()),
+                            status=status, demand=demand)
+        print(json.dumps({"apps_lease": out["lease"]}), flush=True)
+        _check(all(r["device_count"] == 1 for r in seen.values()),
+               f"apps: a 1-GPU replica sees {list(seen.values())}")
+        if n_gpus == 1:
+            _check(len(seen) == 1 and status.get("running") == 1,
+                   f"apps: on one card {len(seen)} replicas answered, "
+                   f"status {status}")
+            _check(any(s.get("GPU") == 1.0 for s in demand),
+                   f"apps: no GPU demand published for the pending "
+                   f"replica: {demand}")
+        else:
+            _check(len(seen) == 2, f"apps: {len(seen)} of 2 replicas ran "
+                   f"on {n_gpus} cards")
+        serve.delete("lease")
+
+        ttft = {k: out[k]["sse_ttft_p50_s" if k == "openai" else
+                          "ttft_p50_s"] for k in ("openai", "pd", "dp")}
+        ttft.update({
+            "runtime_actor": report.get("runtime", {}).get(
+                "serve", {}).get("ttft_p50_s", "not run"),
+            "in_process_engine": report.get("serve", {}).get(
+                "ttft_p50_s", "not run")})
+        out["ttft_p50_s"] = ttft
+        print(json.dumps({"apps_ttft_p50_s": ttft}), flush=True)
+    finally:
+        del LLMConfig.__reduce__
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            os.environ.pop("RT_GPU_AUTODETECT", None)
+    del ref_server
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    _check(not left, f"apps: processes left after shutdown: {left}")
+    print("apps: shut down, no process of the cluster left", flush=True)
+    return out
+
+
 def _path_launches(report, key):
-    """``key``'s launches in the trainer and stages phases' runs (the
-    train worker's steps, both pipelines' steps over their stages)."""
-    return sum(report[p]["launches"][key] for p in ("trainer", "stages")
-               if p in report)
+    """``key``'s launches in the trainer, stages and apps phases' runs (the
+    train worker's steps, both pipelines' steps over their stages, the
+    apps' prefill worker and engines)."""
+    return sum(report[p]["launches"].get(key, 0)
+               for p in ("trainer", "stages", "apps") if p in report)
 
 
 def kernels_line(report):
@@ -3783,7 +4382,7 @@ def kernels_line(report):
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages")
+          "trainer", "stages", "apps")
 
 
 def main(argv=None) -> int:
@@ -3874,6 +4473,9 @@ def main(argv=None) -> int:
     if "stages" in phases:
         torch.cuda.empty_cache()
         report["stages"] = phase_stages(dev)
+    if "apps" in phases:
+        torch.cuda.empty_cache()
+        report["apps"] = phase_apps(report)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -10,7 +10,7 @@ The port's copy of ``ray_tpu/cluster_utils.py``: `add_node` and
 `kill_node` start and stop the port's node daemons. JAX's scale plane,
 `add_sim_nodes` (one subprocess speaking the node-daemon protocol for
 hundreds of simulated nodes, ``ray_tpu/_private/simnode.py``), raises
-``NotImplementedError`` until the port has simnode: ROADMAP Queue 1, R3.
+``NotImplementedError`` until the port has simnode: ROADMAP Queue 1, R3b.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ class Cluster:
         docstring)."""
         raise NotImplementedError(
             "add_sim_nodes needs _private/simnode.py, which the port does "
-            "not have yet: ROADMAP Queue 1, R3")
+            "not have yet: ROADMAP Queue 1, R3b")
 
     def kill_node(self, node: NodeHandle, force: bool = True):
         node_mod.kill_process(node.proc, force=force)

@@ -3,9 +3,13 @@
 Counterpart of ``ray_tpu/llm``: the byte tokenizer, ``LLMConfig`` and the
 ``LLMServer`` replica (an OpenAI-completions-shaped dict in and out), over
 the port's Llama model with a KV-cache decode loop (``_generate.py``) and
-the continuous-batching paged engine (``_engine.py``). The actor and
-serve-deployment wrappers (``LLMEngine``, ``build_openai_app``,
-``batch_completions``) need the runtime, which a later slice ports.
+the continuous-batching paged engine (``_engine.py``), and the cluster
+side: ``LLMEngine`` (an async actor around ``PagedEngine``) and
+``build_openai_app`` (``LLMServer`` as a serve deployment). Every model
+lives on ``device``, CUDA unless the caller passes ``device="cpu"``: the
+one difference in signature from the JAX package's entries.
+``batch_completions`` reads a ``data`` Dataset, which the port does not
+have yet (ROADMAP Queue 1, R3b).
 """
 
 from __future__ import annotations
@@ -174,13 +178,156 @@ class LLMServer:
         }
 
 
+import ray_tpu_torch as _rt
+
+
+@_rt.remote
+class LLMEngine:
+    """Async actor wrapping the continuous-batching paged-KV engine
+    (reference: the vLLM engine actor inside LLMServer —
+    vllm_engine.py:283). Many callers stream completions concurrently;
+    requests landing mid-decode join the running batch at the next step
+    boundary. The model and the KV pool live on ``device`` (default
+    CUDA)."""
+
+    def __init__(self, config: LLMConfig, engine_config=None, device=None):
+        from ray_tpu_torch.llm._engine import EngineConfig, PagedEngine
+
+        self.config = config
+        self.tokenizer = ByteTokenizer()
+        cfg, params = config.build_model(device)
+        self.engine = PagedEngine(
+            cfg, params, engine_config or EngineConfig(), eos_id=EOS,
+            device=device)
+        self._t0 = None
+
+    @_rt.method(num_returns="streaming")
+    async def completions_stream(self, prompt: str,
+                                 max_tokens: Optional[int] = None,
+                                 temperature: Optional[float] = None,
+                                 seed: Optional[int] = None):
+        """Stream token ids for one completion (text via the byte
+        tokenizer is a pure client-side decode). Per-call overrides fall
+        back to the LLMConfig, like the non-streaming LLMServer path."""
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        ids = self.tokenizer.encode(prompt)
+        gen = self.engine.generate_stream(
+            ids,
+            max_tokens=(self.config.max_new_tokens
+                        if max_tokens is None else max_tokens),
+            temperature=(self.config.temperature
+                         if temperature is None else temperature),
+            seed=self.config.seed if seed is None else seed,
+        )
+        async for tok in gen:
+            yield int(tok)
+
+    @_rt.method(num_returns="streaming")
+    async def completions_stream_prefilled(self, prompt_ids, kv,
+                                           max_tokens: Optional[int] = None,
+                                           temperature: Optional[float] = None,
+                                           seed: Optional[int] = None):
+        """Decode side of prefill/decode disaggregation: admit with KV
+        block contents transferred from a remote PrefillWorker (reference:
+        serving_patterns/prefill_decode + vLLM KV transfer connectors).
+
+        `kv` may be the PrefillWorker's result dict (the ingress passes
+        the prefill task's REF, so the blocks move owner -> this engine
+        over the object plane directly, without materializing in the
+        ingress process) or a bare (k, v, last_logits) tuple: CPU tensors
+        or numpy arrays, copied into this engine's pool on its device."""
+        if isinstance(kv, dict):
+            kv = (kv["k"], kv["v"], kv["last_logits"])
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        gen = self.engine.generate_stream(
+            list(prompt_ids),
+            max_tokens=(self.config.max_new_tokens
+                        if max_tokens is None else max_tokens),
+            temperature=(self.config.temperature
+                         if temperature is None else temperature),
+            seed=self.config.seed if seed is None else seed,
+            prefilled=tuple(kv),
+        )
+        async for tok in gen:
+            yield int(tok)
+
+    async def stats(self) -> Dict[str, Any]:
+        # a coroutine method: it makes this an async actor, so concurrent
+        # streams interleave (async generators alone do not)
+        s = self.engine.stats()
+        elapsed = max(time.monotonic() - (self._t0 or time.monotonic()),
+                      1e-9)
+        s["tokens_per_s"] = round(s["tokens_out"] / elapsed, 2)
+        return s
+
+    async def autoscaling_stats(self) -> Dict[str, Any]:
+        s = await self.stats()
+        return {k: s[k] for k in ("ttft_p50_s", "tokens_per_s") if k in s}
+
+
+def engine_actor_class():
+    """Back-compat accessor; the class is a plain module attribute now."""
+    return LLMEngine
+
+
+def build_openai_app(config: LLMConfig, *, deployment_name: str = "v1",
+                     device=None):
+    """Deploy the completions endpoint; returns the serve handle
+    (reference: build_openai_app core/ingress/builder.py:213 — the HTTP
+    route is POST /<deployment_name>, our proxy's path convention). Each
+    replica's model lives on ``device`` (default CUDA)."""
+    from ray_tpu_torch import serve
+
+    deployment = serve.Deployment(
+        LLMServer, deployment_name,
+        num_replicas=config.num_replicas,
+        init_args=(config,),
+        init_kwargs={"device": device},
+    )
+    return serve.run(deployment)
+
+
+def batch_completions(config: LLMConfig, ds, *, prompt_column: str = "prompt",
+                      output_column: str = "completion",
+                      batch_size: int = 8):
+    """Batch inference over a ``data`` Dataset (reference: llm batch
+    processor vllm_engine_stage.py): waits for the port's ``data``."""
+    raise NotImplementedError(
+        "batch_completions maps over a ray_tpu_torch.data Dataset, which "
+        "the port does not have yet: ROADMAP Queue 1, R3b")
+
+
+_SINGLETON: Dict[tuple, LLMServer] = {}
+
+
+def _server_singleton(config: LLMConfig) -> LLMServer:
+    # keyed on everything that changes the loaded model — model_id alone
+    # would silently serve the wrong weights when two configs share it
+    key = (config.model_id, config.model, config.checkpoint_path,
+           config.seed, tuple(sorted(config.model_overrides.items())))
+    if key not in _SINGLETON:
+        _SINGLETON[key] = LLMServer(config)
+    return _SINGLETON[key]
+
+
 __all__ = [
     "BOS",
     "EOS",
     "ByteTokenizer",
     "LLMConfig",
+    "LLMEngine",
     "LLMServer",
+    "batch_completions",
+    "build_openai_app",
+    "engine_actor_class",
     "generate",
     "generate_stream",
     "init_cache",
 ]
+
+from ray_tpu_torch._private.usage import record_library_usage as _rlu
+
+_rlu("llm")
+del _rlu

@@ -59,7 +59,7 @@ def refuse_fractional_gpus(res: Dict[str, float]) -> None:
     if res.get("GPU", 0) % 1:
         raise ValueError(
             f"GPU={res['GPU']}: a GPU lease takes whole devices; fractional "
-            "GPUs wait for ROADMAP Queue 1, R3")
+            "GPUs wait for ROADMAP Queue 1, R5")
 
 
 def build_resources(opts: Dict[str, Any], default_cpu: float = 1.0) -> Dict[str, float]:

@@ -295,12 +295,28 @@ def bind_generator(gen, span: dict):
 
 
 def list_spans(limit: int = 1000) -> List[Dict[str, Any]]:
-    """Finished spans recorded through the task-event plane. The JAX
-    package reads them through ``util/state``, which the port has not
-    ported yet."""
-    raise NotImplementedError(
-        "list_spans reads through util/state (ray_tpu/util/state), which is "
-        "not ported yet: ROADMAP Queue 1, R3")
+    """Finished spans recorded through the task-event plane (driver-side
+    view over the cluster's trace history). Reads RAW task events — the
+    per-task latest-state collapse of list_tasks() would drop SPAN records
+    once the task's FINISHED event lands."""
+    from ray_tpu_torch.util.state import _control_call
+
+    reply = _control_call("list_task_events", {"limit": limit * 4})
+    out = []
+    for ev in reply["events"]:
+        if ev.get("event") == "SPAN" and ev.get("trace_id"):
+            out.append({
+                "task_id": ev["task_id"].hex(),
+                "name": ev["name"],
+                "event": "SPAN",
+                "trace_id": ev["trace_id"],
+                "span_id": ev["span_id"],
+                "parent_span_id": ev.get("parent_span_id", ""),
+                "ts": ev["ts"],
+                "duration_s": ev.get("duration_s"),
+                "node_id": ev.get("node_id", ""),
+            })
+    return out[-limit:]
 
 
 __all__ = ["DERIVE_CTX", "bind_generator", "bind_span", "current_span",

@@ -724,7 +724,10 @@ def import_check(root):
         "'ray_tpu_torch.dag._compiled', "
         "'ray_tpu_torch.experimental.channel', "
         "'ray_tpu_torch.cluster_utils', "
-        "'ray_tpu_torch.util.placement_group'} <= set(names), names\n"
+        "'ray_tpu_torch.util.placement_group', 'ray_tpu_torch.serve', "
+        "'ray_tpu_torch.serve._http', 'ray_tpu_torch.serve._grpc', "
+        "'ray_tpu_torch.util.state', "
+        "'ray_tpu_torch.llm.serving_patterns'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1220,3 +1223,171 @@ def train_from_seed(shape, tokens, lr, steps, seed=0):
         state, loss = train_step(state, toks)
         losses.append(float(loss))
     return losses
+
+
+# -- the serve apps: llm/__init__.py, llm/serving_patterns.py ----------------
+
+
+def _llm_config(checkpoint_path, max_new_tokens):
+    return LLMConfig(max_new_tokens=max_new_tokens,
+                     checkpoint_path=checkpoint_path,
+                     model_overrides=dict(dtype=torch.float32))
+
+
+def apps_start(num_cpus):
+    """A cluster of the port in this process, traced (``list_spans``)."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=num_cpus, system_config={"tracing_enabled": True})
+    atexit.register(apps_stop)
+
+
+def apps_stop():
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    if rt.is_initialized():
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+
+
+def openai_app(checkpoint_path, max_new_tokens):
+    """``build_openai_app`` on the CPU and the HTTP ingress: the base URL."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_openai_app
+
+    build_openai_app(_llm_config(checkpoint_path, max_new_tokens),
+                     deployment_name="v1", device="cpu")
+    return serve.start(http_port=0)
+
+
+def _actor_ids():
+    """Every actor's id, the serve controller's among them."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util.state import list_actors
+
+    serve.status()  # the controller, made now if it is not yet
+    return {a["actor_id"] for a in list_actors()}
+
+
+def _delete_and_reap(name, before, timeout=60.0):
+    """``serve.delete`` the app, then the states of the actors made since
+    ``before``: once its replica is dead (the actors its ingress made live
+    on, as in the JAX package), and after this kills those."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util.state import list_actors
+
+    def made():
+        return [a for a in list_actors() if a["actor_id"] not in before]
+
+    def wait(done):
+        deadline = time.monotonic() + timeout
+        while not done(made()) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        return made()
+
+    replica = f"serve:{name}:"
+    serve.delete(name)
+    wait(lambda m: all(a["state"] == "DEAD" for a in m
+                       if a["name"].startswith(replica)))
+    time.sleep(1.0)  # the replica's death is recorded: its actors stay
+    deleted = {(a["name"].startswith(replica), a["state"]) for a in made()}
+    cw = rt.get_core_worker()
+    for a in made():
+        if a["state"] == "ALIVE":
+            cw.run_sync(cw.kill_actor(bytes.fromhex(a["actor_id"]), True), 30)
+    killed = wait(lambda m: all(a["state"] == "DEAD" for a in m))
+    return sorted(deleted), sorted({a["state"] for a in killed})
+
+
+def pd_app(checkpoint_path, max_new_tokens, ecfg, prompts):
+    """``build_pd_app`` (1 prefill worker, 2 decode engines) on the CPU:
+    each prompt's completion in turn, the ingress's stats, and the states
+    of its actors after ``serve.delete`` (``_delete_and_reap``)."""
+    from ray_tpu_torch.llm.serving_patterns import build_pd_app
+
+    before = _actor_ids()
+    handle = build_pd_app(_llm_config(checkpoint_path, max_new_tokens),
+                          num_prefill=1, num_decode=2,
+                          deployment_name="pd", engine_config=ecfg,
+                          device="cpu")
+    outs = [handle.remote({"prompt": p}).result(timeout=300)
+            for p in prompts]
+    stats = handle.method("stats").remote().result(timeout=60)
+    return outs, stats, _delete_and_reap("pd", before)
+
+
+def dp_app(checkpoint_path, max_new_tokens, ecfg, prompts):
+    """``build_dp_app`` (dp 2) on the CPU, the prompts sent at once: each
+    completion, and the engines' states after ``serve.delete``
+    (``_delete_and_reap``)."""
+    from ray_tpu_torch.llm.serving_patterns import build_dp_app
+
+    before = _actor_ids()
+    handle = build_dp_app(_llm_config(checkpoint_path, max_new_tokens),
+                          dp_size=2, deployment_name="dp",
+                          engine_config=ecfg, device="cpu")
+    refs = [handle.remote({"prompt": p}) for p in prompts]
+    outs = [r.result(timeout=300) for r in refs]
+    return outs, _delete_and_reap("dp", before)
+
+
+def engine_streams(checkpoint_path, max_new_tokens, ecfg, prompts):
+    """An ``LLMEngine`` actor on the CPU: each prompt's streamed token ids
+    (the prompts streamed at once), and its stats."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMEngine
+
+    eng = LLMEngine.remote(_llm_config(checkpoint_path, max_new_tokens),
+                           EngineConfig(**ecfg), device="cpu")
+    try:
+        gens = [eng.completions_stream.options(
+            num_returns="streaming").remote(p) for p in prompts]
+        toks = [[rt.get(r, timeout=120) for r in g] for g in gens]
+        return toks, rt.get(eng.stats.remote(), timeout=60)
+    finally:
+        rt.kill(eng)
+
+
+def batch_completions_refusal():
+    from ray_tpu_torch.llm import batch_completions
+
+    try:
+        batch_completions(LLMConfig(), None)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def spans(limit=4000):
+    from ray_tpu_torch.util import tracing
+
+    return tracing.list_spans(limit=limit)
+
+
+def llm_names():
+    from ray_tpu_torch import llm
+    from ray_tpu_torch.llm import serving_patterns
+
+    return list(llm.__all__), list(serving_patterns.__all__)
+
+
+def apps_cuda_default_errors():
+    """What the apps' model holders raise on the default device without
+    CUDA ({name: message}); None where one built (a machine with CUDA)."""
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.llm.serving_patterns import PrefillWorker
+
+    out = {"cuda_available": torch.cuda.is_available()}
+    for name, make in (("LLMEngine", lambda: LLMEngine._cls(LLMConfig())),
+                       ("PrefillWorker",
+                        lambda: PrefillWorker._cls(LLMConfig()))):
+        try:
+            make()
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    return out
