@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs nineteen phases and fails (exit 1) if any check fails:
+runs twenty phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -201,6 +201,35 @@ runs nineteen phases and fails (exit 1) if any check fails:
             bytes and its share of the TTFT. The counts come from
             ``_apps_install``, which every app process runs as it
             unpickles its ``LLMConfig``.
+* data    — the port's data library on its cluster (``init(num_cpus=4)``).
+            (a) ``data.range(88, parallelism=11)``, each row id i mapped by
+            ``map_batches`` to 2048 tokens from seed SEED + 100 + i, left
+            unmaterialized so it streams, through
+            ``iter_batches(batch_size=8, device_put=True)`` into the train
+            phase's ``make_train_step`` (the flagship, "flash", remat
+            "dots"): one warm-up and 10 timed steps. The reference: a fresh
+            state from the same seed stepped on the same 11 batches made
+            here and moved by ``torch.from_numpy(b).to(dev)``. Gates: every
+            loss bitwise the reference's; the batches int32 on the card (as
+            JAX's ``device_put`` gives); K1/K2/K3 32/16/16 a step. Printed:
+            step ms fed by the iterator and from tensors on the card, host
+            ms in ``next()`` a batch and the copy's share of it (the cast
+            into pinned memory and the copy, timed alone on the same
+            batches), the device's idle share over one
+            profiled step (its batch fetched inside it), peak memory.
+            (b) ``llm.batch_completions`` at llama3_8b (random bf16 weights
+            from the seed) over ``from_items`` of the apps phase's 4
+            prompts, ``parallelism=2``, 32 greedy tokens; each map worker
+            builds its model on the card. Gates: 4 rows, each completion
+            the in-process ``LLMServer``'s for the block the row is in (what
+            a map task computes), every token id each map worker generated
+            equal to the in-process ones, at most two workers built a model,
+            one each; the texts also those of the in-process server given
+            all 4 prompts at once. Printed: seconds from the call to the
+            last row, and whether that server's token ids agree (batched
+            greedy decoding depends on the batch). The counts come from ``_data_install``, which each map
+            worker runs as it unpickles the ``LLMConfig``. No process of the
+            cluster is left after ``shutdown()``.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -4291,12 +4320,319 @@ def phase_apps(report):
     return out
 
 
+# the data phase: a streaming Dataset feeding the flagship's train step on
+# the card, then batch_completions at Llama-3-8B
+DATA_ROWS, DATA_BLOCKS = 88, 11    # 11 batches of 8: a warm-up, 10 timed
+DATA_CPUS = 4
+DATA_PROMPT_BLOCKS = 2             # map tasks of batch_completions
+DATA_MAX_MODELS = 2                # 8B copies the map workers may build
+
+
+def _data_tokens(batch):
+    """``map_batches``: row id i becomes TRAIN_SEQ tokens of the
+    flagship's vocab drawn from seed SEED + 100 + i."""
+    import numpy as np
+
+    return {"tokens": np.stack([np.random.RandomState(
+        SEED + 100 + int(i)).randint(0, TRAIN_CFG["vocab_size"], TRAIN_SEQ)
+        for i in batch["id"]])}
+
+
+def _data_note(record_dir, entry):
+    """One JSON line of what this process did, in ``record_dir`` (None:
+    this script's own process, which reads its record in memory)."""
+    if record_dir:
+        with open(os.path.join(record_dir, f"{os.getpid()}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(dict(entry, pid=os.getpid())) + "\n")
+
+
+def _data_install(record_dir):
+    """chip_smoke's counters in a process that runs ``batch_completions``'
+    map tasks (or in this script's process, ``record_dir`` None): each
+    ``LLMServer`` built, and each prompt's token ids ``generate`` returned
+    to it, noted in ``llm._chip_smoke_data`` and in ``record_dir``. Nothing they
+    compute changes. Runs as the process unpickles the phase's
+    ``LLMConfig`` (``_data_config``)."""
+    import ray_tpu_torch.llm as llm
+
+    if getattr(llm, "_chip_smoke_data", None) is not None:
+        return
+    rec = llm._chip_smoke_data = {"built": 0, "generated": []}
+    init, gen = llm.LLMServer.__init__, llm.generate
+
+    def __init__(self, *a, **kw):
+        init(self, *a, **kw)
+        rec["built"] += 1
+        _data_note(record_dir, {"built": str(self.params["tok_emb"].device)})
+
+    def generate(cfg, params, prompts, **kw):
+        outs = gen(cfg, params, prompts, **kw)
+        pairs = [[list(map(int, p)), list(map(int, o))]
+                 for p, o in zip(prompts, outs)]
+        rec["generated"] += pairs
+        _data_note(record_dir, {"generated": pairs})
+        return outs
+
+    llm.LLMServer.__init__ = __init__
+    llm.generate = generate
+
+
+def _data_config(fields, record_dir):
+    """Unpickles the data phase's ``LLMConfig``: first installs
+    chip_smoke's counters in this process (``_data_install``)."""
+    _data_install(record_dir)
+    from ray_tpu_torch.llm import LLMConfig
+
+    return LLMConfig(**fields)
+
+
+_DATA_RECORD_DIR = None
+
+
+def _data_config_reduce(self):
+    import dataclasses
+
+    return (_data_config, ({f.name: getattr(self, f.name)
+                            for f in dataclasses.fields(self)},
+                           _DATA_RECORD_DIR))
+
+
+def _data_train(dev, cfg, feed, profile_feed=None):
+    """The flagship from seed SEED, a warm-up and then DATA_BLOCKS - 1
+    timed steps on the batches ``feed()`` returns one by one: every loss,
+    step ms, host ms spent in ``feed``, K1-K3 launches of the timed steps,
+    peak memory, the batches' dtype / device / shape; with
+    ``profile_feed`` (made after the timed steps: a function that gives
+    batches), one profiled step, its batch fetched inside it."""
+    import torch
+
+    from ray_tpu_torch.models.llama import make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    init_state, shard_state, train_step, _ = make_train_step(
+        cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0)
+    state = shard_state(init_state(SEED))
+    state, loss = train_step(state, feed())  # warm-up: cuBLAS, kernels
+    losses = [loss]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = DATA_BLOCKS - 1
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    feed_s, seen = 0.0, set()
+    t = time.monotonic()
+    for _ in range(steps):
+        t_feed = time.monotonic()
+        tokens = feed()
+        feed_s += time.monotonic() - t_feed
+        seen.add((str(tokens.dtype), tokens.device.type,
+                  tuple(tokens.shape)))
+        state, loss = train_step(state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.monotonic() - t) / steps
+    launches = dict(k1=fa.flash_fwd_launches, k2=fa.flash_bwd_dq_launches,
+                    k3=fa.flash_bwd_dkv_launches)
+    out = dict(losses=[float(x) for x in losses], step_ms=dt * 1e3,
+               feed_host_ms=feed_s / steps * 1e3,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               batches=sorted(seen))
+    if profile_feed is not None:
+        fetch = profile_feed()
+        out["profile"] = _train_profile(
+            lambda s: train_step(s, fetch()), state)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data(dev):
+    """The port's data library on the card (see the module docstring):
+    (a) a streaming Dataset through ``iter_batches(device_put=True)``
+    into the flagship's train step, against the same batches moved by
+    ``.to(dev)``; (b) ``batch_completions`` at Llama-3-8B against the
+    in-process ``LLMServer``."""
+    global _DATA_RECORD_DIR
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rdata
+    import ray_tpu_torch.llm as llm
+    from ray_tpu_torch.llm import (ByteTokenizer, LLMConfig, LLMServer,
+                                   batch_completions)
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    out = {}
+    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    _check(DATA_ROWS == DATA_BLOCKS * TRAIN_BATCH,
+           "data: the blocks must be the batches")
+    # (a) the reference first: the same batches made here, moved by .to()
+    made = [_data_tokens({"id": np.arange(k * TRAIN_BATCH,
+                                          (k + 1) * TRAIN_BATCH)})["tokens"]
+            for k in range(DATA_BLOCKS)]
+    on_card = iter([torch.from_numpy(b).to(dev) for b in made])
+    direct = _data_train(dev, cfg, lambda: next(on_card))
+    print(json.dumps({"data_direct": direct}), flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    t0 = time.monotonic()
+    rt.init(num_cpus=DATA_CPUS)
+    out["cluster_start_s"] = time.monotonic() - t0
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        ds = rdata.range(DATA_ROWS, parallelism=DATA_BLOCKS).map_batches(
+            _data_tokens)  # not materialized: it streams
+        it = ds.iter_batches(batch_size=TRAIN_BATCH, device_put=True)
+
+        def profile_feed():
+            again = ds.iter_batches(batch_size=TRAIN_BATCH, device_put=True)
+            next(again)  # the profiled step's pipeline, already streaming
+            return lambda: next(again)["tokens"]
+
+        fed = _data_train(dev, cfg, lambda: next(it)["tokens"],
+                          profile_feed=profile_feed)
+        out["train"] = fed
+        out["launches"] = fed["launches"]
+        _check(next(it, None) is None,
+               f"data: more than {DATA_BLOCKS} batches")
+        # next()'s host time split: the copy to the card alone (the cast
+        # into pinned memory and the non-blocking copy) on a batch here
+        from ray_tpu_torch.data.dataset import _put_column
+
+        t = time.monotonic()
+        for b in made:
+            _put_column(b, dev)
+        fed["put_host_ms"] = (time.monotonic() - t) / len(made) * 1e3
+        torch.cuda.synchronize()
+        prof = fed["profile"]
+        print(f"data: step {fed['step_ms']:.2f} ms fed by iter_batches "
+              f"against {direct['step_ms']:.2f} ms from tensors on the "
+              f"card; {fed['feed_host_ms']:.3f} ms of host time in next() "
+              f"a batch, {fed['put_host_ms']:.3f} ms of it the copy to the "
+              f"card; device idle {prof.get('device_idle_share')} of a "
+              f"profiled step; peak {fed['peak_memory_gb']:.2f} GB",
+              flush=True)
+        _check(fed["losses"] == direct["losses"],
+               f"data: losses fed by iter_batches {fed['losses']} are not "
+               f"bitwise the direct ones {direct['losses']}")
+        _check(all(np.isfinite(fed["losses"])),
+               f"data: losses not finite: {fed['losses']}")
+        _check(fed["batches"] == [("torch.int32", "cuda",
+                                   (TRAIN_BATCH, TRAIN_SEQ))],
+               f"data: batches on the device were {fed['batches']}, want "
+               f"int32 on cuda as JAX's device_put gives")
+        want = dict(k1=2 * cfg.n_layers, k2=cfg.n_layers, k3=cfg.n_layers)
+        _check(fed["launches_per_step"] == want,
+               f"data: launches a step {fed['launches_per_step']}, want "
+               f"{want}")
+
+        # (b) batch_completions: the in-process server first, on the
+        # blocks the map tasks get (from_items cuts 4 rows into 2 x 2)
+        torch.cuda.empty_cache()
+        model, overrides = RUNTIME_MODEL
+        config = LLMConfig(
+            model_id=f"{model}-random", model=model, seed=SEED,
+            max_new_tokens=SERVE_MAX_TOKENS,
+            model_overrides={k: getattr(torch, v) if k.endswith("dtype")
+                             else v for k, v in overrides.items()})
+        prompts = _apps_prompts(SEED + 2)
+        tok = ByteTokenizer()
+        _check([len(tok.encode(p)) for p in prompts] == list(SERVE_PROMPTS),
+               "data: prompt lengths")
+        per = len(prompts) // DATA_PROMPT_BLOCKS
+        blocks = [prompts[i:i + per] for i in range(0, len(prompts), per)]
+        _data_install(None)
+        t = time.monotonic()
+        ref_server = LLMServer(config)
+        ref_texts = [c["text"] for b in blocks
+                     for c in ref_server({"prompt": b})["choices"]]
+        ref_ids = {tuple(p): o for p, o in llm._chip_smoke_data["generated"]}
+        whole = ref_server({"prompt": prompts})["choices"]
+        whole_ids = llm._chip_smoke_data["generated"][len(prompts):]
+        out["reference_s"] = time.monotonic() - t
+        del ref_server
+        torch.cuda.empty_cache()
+
+        _DATA_RECORD_DIR = tmp
+        LLMConfig.__reduce__ = _data_config_reduce
+        try:
+            pds = rdata.from_items([{"prompt": p} for p in prompts],
+                                   parallelism=DATA_PROMPT_BLOCKS)
+            t = time.monotonic()
+            rows = batch_completions(config, pds).take_all()
+            out["batch_completions_s"] = time.monotonic() - t
+        finally:
+            del LLMConfig.__reduce__
+            _DATA_RECORD_DIR = None
+        notes = []
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name)) as f:
+                notes += [json.loads(line) for line in f]
+        built = [n for n in notes if "built" in n]
+        got_ids = {tuple(p): o for n in notes
+                   for p, o in n.get("generated", [])}
+        out["batch"] = dict(
+            rows=len(rows), texts_bytes=[len(str(r["completion"]).encode())
+                                         for r in rows],
+            workers_built=sorted({n["pid"] for n in built}),
+            models_built=len(built), model_devices=sorted(
+                {n["built"] for n in built}),
+            tokens=[len(got_ids.get(tuple(tok.encode(p)), []))
+                    for p in prompts],
+            whole_batch_ids_equal=[list(tok.encode(p)) == w[0] and
+                                   ref_ids[tuple(tok.encode(p))] == w[1]
+                                   for p, w in zip(prompts, whole_ids)],
+            whole_batch_texts_equal=[c["text"] for c in whole] == ref_texts)
+        print(json.dumps({"data_batch_completions": dict(
+            out["batch"], seconds=out["batch_completions_s"],
+            reference_s=out["reference_s"])}), flush=True)
+        _check(len(rows) == len(prompts),
+               f"data: {len(rows)} rows, want {len(prompts)}")
+        _check([str(r["prompt"]) for r in rows] == prompts
+               and [str(r["completion"]) for r in rows] == ref_texts,
+               "data: batch_completions' rows are not the in-process "
+               "server's completions")
+        _check(out["batch"]["whole_batch_texts_equal"],
+               "data: batch_completions' texts are not the in-process "
+               "server's given all the prompts at once")
+        _check(set(got_ids) == set(ref_ids) and all(
+            got_ids[k] == ref_ids[k] for k in ref_ids),
+               "data: the token ids the map workers generated are not the "
+               "in-process server's")
+        _check(1 <= len(out["batch"]["workers_built"]) <= DATA_MAX_MODELS
+               and len(built) == len(out["batch"]["workers_built"]),
+               f"data: models built {built}, want one a worker and at most "
+               f"{DATA_MAX_MODELS}")
+        _check(out["batch"]["model_devices"] == ["cuda:0"],
+               f"data: map workers built on {out['batch']['model_devices']}")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    _check(not left, f"data: processes left after shutdown: {left}")
+    print("data: shut down, no process of the cluster left", flush=True)
+    return out
+
+
 def _path_launches(report, key):
-    """``key``'s launches in the trainer, stages and apps phases' runs (the
-    train worker's steps, both pipelines' steps over their stages, the
-    apps' prefill worker and engines)."""
+    """``key``'s launches in the trainer, stages, apps and data phases'
+    runs (the train worker's steps, both pipelines' steps over their
+    stages, the apps' prefill worker and engines, the steps fed by a
+    Dataset)."""
     return sum(report[p]["launches"].get(key, 0)
-               for p in ("trainer", "stages", "apps") if p in report)
+               for p in ("trainer", "stages", "apps", "data") if p in report)
 
 
 def kernels_line(report):
@@ -4382,7 +4718,7 @@ def kernels_line(report):
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages", "apps")
+          "trainer", "stages", "apps", "data")
 
 
 def main(argv=None) -> int:
@@ -4476,6 +4812,9 @@ def main(argv=None) -> int:
     if "apps" in phases:
         torch.cuda.empty_cache()
         report["apps"] = phase_apps(report)
+    if "data" in phases:
+        torch.cuda.empty_cache()
+        report["data"] = phase_data(dev)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

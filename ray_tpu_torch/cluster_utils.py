@@ -6,16 +6,20 @@ GCS as subprocesses on a single machine, the backbone of every multi-node
 integration test). Each added node is a real node-daemon subprocess with its
 own shared-memory object store.
 
-The port's copy of ``ray_tpu/cluster_utils.py``: `add_node` and
-`kill_node` start and stop the port's node daemons. JAX's scale plane,
-`add_sim_nodes` (one subprocess speaking the node-daemon protocol for
-hundreds of simulated nodes, ``ray_tpu/_private/simnode.py``), raises
-``NotImplementedError`` until the port has simnode: ROADMAP Queue 1, R3b.
+Scale plane: `add_sim_nodes(count)` attaches a simulated-node plane — ONE
+subprocess speaking the full node-daemon control protocol for `count` nodes
+(no worker pools / object stores; see _private/simnode.py) — so a test can
+put 500-1000 registered, heartbeating nodes behind the same control store
+its few REAL daemons use.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import subprocess
+import sys
+import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -31,6 +35,14 @@ class NodeHandle:
     store_name: str
 
 
+@dataclass
+class SimPlaneHandle:
+    proc: subprocess.Popen
+    count: int
+    node_ids: List[str]
+    register_storm_s: float
+
+
 class Cluster:
     def __init__(self, initialize_head: bool = True,
                  head_resources: Optional[Dict[str, float]] = None,
@@ -38,6 +50,7 @@ class Cluster:
         self.session_dir = node_mod.new_session_dir()
         self.cs_proc, self.address = node_mod.start_control_store(self.session_dir)
         self.nodes: List[NodeHandle] = []
+        self.sim_planes: List[SimPlaneHandle] = []
         self.standby_proc: Optional[subprocess.Popen] = None
         if GLOBAL_CONFIG.get("store_standby_enabled"):
             self.standby_proc = node_mod.start_standby_store(
@@ -87,12 +100,39 @@ class Cluster:
     def add_sim_nodes(self, count: int,
                       resources: Optional[Dict[str, float]] = None,
                       seed: Optional[int] = None,
-                      timeout: float = 120.0):
-        """Attach `count` simulated nodes: not ported yet (see the module
-        docstring)."""
-        raise NotImplementedError(
-            "add_sim_nodes needs _private/simnode.py, which the port does "
-            "not have yet: ROADMAP Queue 1, R3b")
+                      timeout: float = 120.0) -> SimPlaneHandle:
+        """Attach `count` simulated nodes (one subprocess hosting the whole
+        plane). Blocks until every simnode has registered."""
+        ready = os.path.join(
+            self.session_dir, f"sim_ready_{uuid.uuid4().hex[:6]}.json")
+        log = open(os.path.join(
+            self.session_dir, "logs",
+            f"simnodes_{uuid.uuid4().hex[:6]}.log"), "ab")
+        cmd = [
+            sys.executable, "-m", "ray_tpu_torch._private.simnode",
+            "--control-address", self.address,
+            "--count", str(count),
+            "--ready-file", ready,
+            "--config-json", GLOBAL_CONFIG.serialize_overrides(),
+        ]
+        if seed is not None:
+            cmd += ["--seed", str(seed)]
+        if resources:
+            cmd += ["--resources", json.dumps(resources)]
+        proc = subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True,
+            env={**os.environ, "RT_CHAOS_ROLE": "simplane"},
+        )
+        log.close()
+        info = node_mod._wait_ready(ready, proc, timeout=timeout)
+        handle = SimPlaneHandle(
+            proc=proc, count=info["count"],
+            node_ids=info.get("node_ids", []),
+            register_storm_s=info.get("register_storm_s", 0.0),
+        )
+        self.sim_planes.append(handle)
+        return handle
 
     def kill_node(self, node: NodeHandle, force: bool = True):
         node_mod.kill_process(node.proc, force=force)
@@ -102,6 +142,9 @@ class Cluster:
     def shutdown(self):
         for n in list(self.nodes):
             self.kill_node(n)
+        for sp in list(self.sim_planes):
+            node_mod.kill_process(sp.proc, force=True)
+        self.sim_planes.clear()
         node_mod.kill_process(self.cs_proc, force=True)
         if self.standby_proc is not None:
             node_mod.kill_process(self.standby_proc, force=True)

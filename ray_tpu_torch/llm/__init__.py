@@ -8,8 +8,7 @@ side: ``LLMEngine`` (an async actor around ``PagedEngine``) and
 ``build_openai_app`` (``LLMServer`` as a serve deployment). Every model
 lives on ``device``, CUDA unless the caller passes ``device="cpu"``: the
 one difference in signature from the JAX package's entries.
-``batch_completions`` reads a ``data`` Dataset, which the port does not
-have yet (ROADMAP Queue 1, R3b).
+``batch_completions`` maps ``LLMServer`` over a ``data`` Dataset.
 """
 
 from __future__ import annotations
@@ -291,24 +290,37 @@ def build_openai_app(config: LLMConfig, *, deployment_name: str = "v1",
 
 def batch_completions(config: LLMConfig, ds, *, prompt_column: str = "prompt",
                       output_column: str = "completion",
-                      batch_size: int = 8):
-    """Batch inference over a ``data`` Dataset (reference: llm batch
-    processor vllm_engine_stage.py): waits for the port's ``data``."""
-    raise NotImplementedError(
-        "batch_completions maps over a ray_tpu_torch.data Dataset, which "
-        "the port does not have yet: ROADMAP Queue 1, R3b")
+                      batch_size: int = 8, device=None):
+    """Batch inference over a ray_tpu_torch.data Dataset (reference: llm
+    batch processor vllm_engine_stage.py). One model instance per map
+    task's process, on ``device`` (default CUDA)."""
+
+    def infer_batch(block):
+        server = _server_singleton(config, device)
+        prompts = [str(p) for p in block[prompt_column].tolist()]
+        result = server({"prompt": prompts})
+        import numpy as np
+
+        out = dict(block)
+        out[output_column] = np.array(
+            [c["text"] for c in result["choices"]], dtype=object)
+        return out
+
+    return ds.map_batches(infer_batch)
 
 
 _SINGLETON: Dict[tuple, LLMServer] = {}
 
 
-def _server_singleton(config: LLMConfig) -> LLMServer:
+def _server_singleton(config: LLMConfig, device=None) -> LLMServer:
     # keyed on everything that changes the loaded model — model_id alone
-    # would silently serve the wrong weights when two configs share it
+    # would silently serve the wrong weights when two configs share it —
+    # and on the device, so a CPU server and a CUDA one never share a slot
     key = (config.model_id, config.model, config.checkpoint_path,
-           config.seed, tuple(sorted(config.model_overrides.items())))
+           config.seed, tuple(sorted(config.model_overrides.items())),
+           str(device))
     if key not in _SINGLETON:
-        _SINGLETON[key] = LLMServer(config)
+        _SINGLETON[key] = LLMServer(config, device=device)
     return _SINGLETON[key]
 
 

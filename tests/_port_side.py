@@ -727,7 +727,12 @@ def import_check(root):
         "'ray_tpu_torch.util.placement_group', 'ray_tpu_torch.serve', "
         "'ray_tpu_torch.serve._http', 'ray_tpu_torch.serve._grpc', "
         "'ray_tpu_torch.util.state', "
-        "'ray_tpu_torch.llm.serving_patterns'} <= set(names), names\n"
+        "'ray_tpu_torch.llm.serving_patterns', 'ray_tpu_torch.data', "
+        "'ray_tpu_torch.data.dataset', 'ray_tpu_torch.data._executor', "
+        "'ray_tpu_torch.data._logical.planner', "
+        "'ray_tpu_torch.data.datasource', "
+        "'ray_tpu_torch._private.simnode', "
+        "'ray_tpu_torch.scripts'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1352,14 +1357,52 @@ def engine_streams(checkpoint_path, max_new_tokens, ecfg, prompts):
         rt.kill(eng)
 
 
-def batch_completions_refusal():
-    from ray_tpu_torch.llm import batch_completions
+def batch_completions(checkpoint_path, max_new_tokens, prompts, parallelism):
+    """``batch_completions`` over ``from_items`` on the CPU: each row's
+    (prompt, completion)."""
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.llm import batch_completions as run
 
+    ds = rd.from_items([{"prompt": p} for p in prompts],
+                       parallelism=parallelism)
+    rows = run(_llm_config(checkpoint_path, max_new_tokens), ds,
+               device="cpu").take_all()
+    return [(str(r["prompt"]), str(r["completion"])) for r in rows]
+
+
+def data_device_put(columns):
+    """``test_torch_data_parity.py``'s ``_device_put_batches`` on the
+    port, ``device="cpu"``: each column's (dtype name, values) or the
+    error's type name; then whether ``device_put=True`` without a device
+    raises where CUDA is absent."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    rt.init(num_cpus=2)
     try:
-        batch_completions(LLMConfig(), None)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+        batches = {}
+        for name, col in columns.items():
+            ds = rd.Dataset(_refs=[rt.put({"c": col})])
+            try:
+                (batch,) = list(ds.iter_batches(
+                    batch_size=None, device_put=True, device="cpu"))
+                t = batch["c"]
+                assert t.device.type == "cpu"
+                vals = (t.float() if t.dtype == torch.bfloat16 else t)
+                batches[name] = (str(t.dtype).split(".")[-1],
+                                 vals.numpy().tolist())
+            except Exception as e:  # the type of the refusal is compared
+                batches[name] = type(e).__name__
+        ds = rd.Dataset(_refs=[rt.put({"c": np.arange(3)})])
+        try:
+            list(ds.iter_batches(device_put=True))
+            error = None
+        except RuntimeError as e:
+            error = str(e)
+        return dict(batches=batches, default_device=dict(
+            cuda_available=torch.cuda.is_available(), error=error))
+    finally:
+        rt.shutdown()
 
 
 def spans(limit=4000):

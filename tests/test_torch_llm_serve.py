@@ -6,7 +6,7 @@ actor, all on the CPU (``device="cpu"``), on a tiny Llama whose weights
 are JAX's ``init_params``, pickled and read by both packages'
 ``checkpoint_path``. Greedy decoding: every text and token list must equal
 JAX's. Then the trace of one served request (``list_spans``), and
-``batch_completions``, which waits for the port's ``data``.
+``batch_completions`` over a ``data`` Dataset.
 
 The port's side runs in a spawned child (``_port_proc``): its driver
 imports torch. The child starts the port's cluster; HTTP requests go from
@@ -202,9 +202,20 @@ def test_llm_engine_completions_stream_matches_jax(port, ckpt,
     assert stats["active_slots"] == 0
 
 
-def test_batch_completions_waits_for_data(port):
-    msg = port("batch_completions_refusal")
-    assert msg is not None and "R3b" in msg, msg
+def test_batch_completions_matches_jax(port, ckpt, jserver):
+    """JAX's ``test_batch_completions_over_data`` program (6 prompts,
+    ``from_items(parallelism=2)``, 3 new tokens) through the port's
+    ``batch_completions`` on its cluster: each row's completion is the one
+    JAX's ``LLMServer`` gives the block that row is in, as JAX's map task
+    computes it, on the same weights."""
+    prompts = [f"p{i}" for i in range(6)]
+    rows = port("batch_completions", ckpt, 3, prompts, 2)
+    want = []
+    for block in (prompts[:3], prompts[3:]):
+        res = jserver({"prompt": block, "max_tokens": 3})
+        want += [c["text"] for c in res["choices"]]
+    assert rows == list(zip(prompts, want))
+    assert any(want), "every JAX completion is empty: the test shows nothing"
 
 
 def test_public_names_match_the_jax_package(port):

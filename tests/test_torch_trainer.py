@@ -395,8 +395,45 @@ def test_placement_group_bundles_hold_whole_gpus(ray_init):
         placement_group([{"GPU": 0.5}])
 
 
-def test_sim_nodes_wait_for_simnode():
-    from ray_tpu_torch.cluster_utils import Cluster
+def test_sim_nodes_join_a_cluster_and_leave_with_it():
+    """``Cluster.add_sim_nodes`` (JAX's ``cluster_utils.py:100``): 8
+    simulated nodes with the resources asked for, labelled ``simnode``,
+    beside the real head; ``shutdown`` ends the plane's process."""
+    import asyncio
 
-    with pytest.raises(NotImplementedError, match="R3"):
-        Cluster.add_sim_nodes(None, 10)
+    from ray_tpu_torch._private import protocol as pb
+    from ray_tpu_torch._private.protocol import ResourceSet
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.runtime.rpc import RpcClient
+
+    cluster = Cluster(initialize_head=True)
+    try:
+        handle = cluster.add_sim_nodes(8, seed=11,
+                                       resources={"CPU": 8, "GPU": 1})
+        assert handle.count == 8 and len(set(handle.node_ids)) == 8
+
+        async def nodes():
+            client = RpcClient(cluster.address, name="test->cs")
+            await client.connect()
+            try:
+                return (await client.call("get_all_nodes", {}))["nodes"]
+            finally:
+                await client.close()
+
+        deadline = time.monotonic() + 30
+        while True:
+            alive = [n for n in asyncio.run(nodes())
+                     if n["state"] == pb.NODE_ALIVE]
+            if len(alive) == 9:
+                break
+            assert time.monotonic() < deadline, len(alive)
+            time.sleep(0.2)
+        sims = [n for n in alive if n["labels"].get("simnode") == "true"]
+        assert sorted(n["node_id"] for n in sims) == sorted(
+            bytes.fromhex(h) for h in handle.node_ids)
+        assert all(ResourceSet.from_wire(n["resources"]).to_dict()
+                   == {"CPU": 8.0, "GPU": 1.0} for n in sims)
+    finally:
+        cluster.shutdown()
+    assert handle.proc.wait(timeout=30) is not None
+    assert cluster.sim_planes == []
