@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs twenty phases and fails (exit 1) if any check fails:
+runs twenty-one phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -131,7 +131,11 @@ runs twenty phases and fails (exit 1) if any check fails:
             K1 launches, the engine's gauges read through the metrics
             plane; TTFT and tokens/s beside the serve phase's); neither the
             node daemon nor the control store maps CUDA or torch; a second
-            num_gpus=1 actor waits until the first is killed; a 256 MiB
+            num_gpus=1 actor waits until the first is killed; two
+            num_gpus=0.5 actors live at once, each runs the same fp32
+            product on the card (the same result; the GPU reads 0.0
+            available) and a third waits until one of them is killed,
+            then runs; a 256 MiB
             bf16 CUDA tensor put by the driver is read by a num_gpus=1 task
             bitwise (GB/s host-staged, with the stages of put and get
             timed apart); after shutdown no process of this cluster (its
@@ -230,6 +234,26 @@ runs twenty phases and fails (exit 1) if any check fails:
             greedy decoding depends on the batch). The counts come from ``_data_install``, which each map
             worker runs as it unpickles the ``LLMConfig``. No process of the
             cluster is left after ``shutdown()``.
+* algos   — the rllib algorithms on the port's cluster (``init(num_cpus=4)``,
+            no GPU lease: the env runners infer on their CPU and the
+            learners run in this process on the card). (a) MultiAgentPPO
+            on ``test_rllib_multi_agent.py``'s matching game, independent
+            and shared policies (hidden 32 x 32, lr 3e-3), 2 runners of 200
+            env steps, 5 iterations with the learners on the card; the
+            first iteration against the same config with its learners on
+            the CPU from the same weights and seeds: the batches each
+            learner is handed equal, every weight leaf within TOL_RL (the
+            rl phase's ||err|| / ||ref||); no runner process holds the
+            card's device files (/dev/nvidia*: a CUDA context), which this
+            process, whose learners use the card, does. (b) BC (expert transitions) and CQL (20 % random
+            actions) from a ``ray_tpu_torch.data`` Dataset of 4096
+            transitions of the game's scripted expert, 3 epochs each with
+            the learner on the card: greedy actions equal the expert's on
+            all 256 held-out seeded observations (both packages reach that
+            on the CPU after one epoch, seeds 0-2). Printed: ms an
+            iteration, learner ms an update, env steps/s, samples/s.
+            PPO and DQN on CartPole wait for gymnasium on the card's
+            machine (not installed there).
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2811,13 +2835,44 @@ def _rl_run(kind, args, kwargs, update_args, device, weights):
     return metrics, lrn.get_weights(), secs
 
 
+def _rel_errors(got, ref) -> float:
+    """The largest ||err|| / ||ref|| over the leaves of two weight nests."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.learner import leaves
+
+    return max(float(np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-12))
+               for g, c in zip(leaves(got), leaves(ref)))
+
+
+def _nvidia_handles(pid: int) -> list:
+    """The NVIDIA device files process ``pid`` holds open or mapped
+    (``/dev/nvidia0``, ``/dev/nvidiactl``, ``/dev/nvidia-uvm``...): a
+    process with a CUDA context holds them, one that only imported torch
+    does not."""
+    held = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                held.add(target)
+        with open(f"/proc/{pid}/maps") as f:
+            held.update(line.split()[-1] for line in f
+                        if " /dev/nvidia" in line)
+    except OSError:
+        return []
+    return sorted(held)
+
+
 def phase_rl(dev):
     """The learners on the card against themselves on the CPU."""
     import numpy as np
     import torch
 
     import ray_tpu_torch.rllib as tr
-    from ray_tpu_torch.rllib.learner import leaves
 
     _check(not torch.backends.cuda.matmul.allow_tf32,
            "rl: TF32 products are on; the learners compute in fp32")
@@ -2837,9 +2892,7 @@ def phase_rl(dev):
             got = np.array([m[key] for m in gpu_m])
             metric_err[key] = float(np.abs(got - ref).max()
                                     / max(np.abs(ref).max(), 1e-12))
-        param_err = max(
-            float(np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-12))
-            for g, c in zip(leaves(gpu_w), leaves(cpu_w)))
+        param_err = _rel_errors(gpu_w, cpu_w)
         finite = all(np.isfinite(list(m.values())).all()
                      for m in cpu_m + gpu_m)
         row = dict(learner=kind, kwargs=kwargs,
@@ -3039,6 +3092,75 @@ class _VisibleDevices:
         return os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES")
 
 
+RUNTIME_HALF_N = 4096      # the half-GPU actors' fp32 product: n x n x n
+
+
+class _HalfGpu:
+    """A num_gpus=0.5 actor: it binds no device (the node's stay visible)
+    and runs one seeded fp32 product on the card."""
+
+    def product(self, seed):
+        import torch
+
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        a = torch.randn(RUNTIME_HALF_N, RUNTIME_HALF_N, device="cuda",
+                        generator=g)
+        c = a @ a.T
+        torch.cuda.synchronize()
+        return dict(pid=os.getpid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    device=torch.cuda.get_device_name(0),
+                    tf32=torch.backends.cuda.matmul.allow_tf32,
+                    sum=float(c.double().sum()),
+                    abs_sum=float(c.double().abs().sum()),
+                    corner=c[:2, :2].cpu().tolist())
+
+
+def _runtime_fractional(rt) -> dict:
+    """Fractional GPU leases (ROADMAP R5): two num_gpus=0.5 actors at
+    once, each running the same product on the card with the same result
+    while the GPU reads 0.0 available; a third waits until one of them is
+    killed, then runs."""
+    Half = rt.remote(num_gpus=0.5)(_HalfGpu)
+    t = time.monotonic()
+    halves = [Half.remote() for _ in range(2)]
+    prods = rt.get([h.product.remote(SEED) for h in halves], timeout=300)
+    both_s = time.monotonic() - t
+    deadline = time.monotonic() + 10  # the accounting reaches the store
+    while (rt.available_resources().get("GPU", 0.0) != 0.0
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    avail = rt.available_resources().get("GPU", 0.0)
+    third = Half.remote()
+    pending = third.product.remote(SEED)
+    ready, _ = rt.wait([pending], timeout=RUNTIME_PENDING_WAIT_S)
+    rt.kill(halves[0])
+    t = time.monotonic()
+    late = rt.get(pending, timeout=300)
+    out = dict(n=RUNTIME_HALF_N, both_live_s=both_s, available_gpu=avail,
+               third_waited=not ready,
+               third_started_after_kill_s=time.monotonic() - t,
+               actors=prods + [late])
+    print(json.dumps({"runtime_fractional": out}), flush=True)
+    for h in (halves[1], third):
+        rt.kill(h)
+    pids = {p["pid"] for p in prods}
+    _check(len(pids) == 2, f"runtime: the half-GPU actors share a process: "
+           f"{out}")
+    _check(avail == 0.0, f"runtime: two half-GPU actors live, but "
+           f"{avail} GPU available")
+    _check(not ready, "runtime: a third half-GPU actor started while two "
+           "held the card")
+    ref = prods[0]
+    for p in prods[1:] + [late]:
+        _check(p["device"] == ref["device"] and not p["tf32"]
+               and p["visible"] == os.environ.get("CUDA_VISIBLE_DEVICES")
+               and abs(p["sum"] - ref["sum"]) <= 1e-6 * ref["abs_sum"]
+               and p["corner"] == ref["corner"],
+               f"runtime: half-GPU actors disagree: {p} against {ref}")
+    return out
+
+
 def _runtime_read_tensor(refs):
     """A num_gpus=1 task: get the driver's CUDA tensor (host-staged: the
     store's bytes onto this worker's device) and checksum it."""
@@ -3121,9 +3243,15 @@ def phase_runtime(dev, inproc=None):
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.gpu.accelerator import GpuAcceleratorManager
+    from ray_tpu_torch.util.metrics import reset_registry
 
     out = {}
     torch.cuda.empty_cache()
+    # the serve phase's engine, in this process, left its rt_llm_* gauges
+    # at 0 in the registry. A gauge ships its value at every flush and the
+    # node daemon keeps the last writer of a series, as the JAX package's
+    # plane does, so the driver's stale zeros would mask the actor's gauges.
+    reset_registry()
     os.environ["RT_GPU_AUTODETECT"] = "1"
     t0 = time.monotonic()
     rt.init(num_cpus=RUNTIME_CPUS,
@@ -3300,6 +3428,7 @@ def phase_runtime(dev, inproc=None):
                f"runtime: the second actor sees CUDA_VISIBLE_DEVICES "
                f"{visible2!r}")
         rt.kill(second)
+        out["fractional"] = _runtime_fractional(rt)
 
         # a CUDA tensor through the object store, host-staged
         x = torch.randn(RUNTIME_TENSOR_SHAPE, device=dev,
@@ -4626,6 +4755,311 @@ def phase_data(dev):
     return out
 
 
+# the algos phase: the rllib algorithms, runners on the CPU, learners here
+ALGOS_CPUS = 4
+ALGOS_RUNNERS = 2
+ALGOS_FRAGMENT = 200       # env steps a runner an iteration (as JAX's test)
+ALGOS_ITERS = 5
+ALGOS_OFFLINE_ROWS = 4096
+ALGOS_OFFLINE_EPOCHS = 3
+ALGOS_HELD_OUT = 256
+ALGOS_AGREE_MIN = 1.0      # greedy == expert on every held-out observation
+ALGOS_MAPPINGS = {"independent": (("a0", "a1"), {}),
+                  "shared": (("shared",), {"a0": "shared", "a1": "shared"})}
+
+
+def _matching_env():
+    """``test_rllib_multi_agent.py``'s cooperative matching game (its
+    ``make_matching_env``; ``tests/_rl_envs.py`` holds the tests' copy):
+    two agents see one random bit and earn +1 each when both play it; 20
+    steps an episode, optimum 40, random play ~10. A factory: the runners
+    get it by value."""
+    import numpy as _np
+
+    class MatchingEnv:
+        agents = ("a0", "a1")
+
+        def __init__(self, episode_len=20):
+            self.episode_len = episode_len
+            self._rng = _np.random.default_rng(0)
+            self._t = 0
+            self._bit = 0
+
+        def _obs(self):
+            v = _np.asarray([self._bit, 1 - self._bit], _np.float32)
+            return {a: v for a in self.agents}
+
+        def reset(self, seed=None):
+            if seed is not None:
+                self._rng = _np.random.default_rng(seed)
+            self._t = 0
+            self._bit = int(self._rng.integers(2))
+            return self._obs(), {}
+
+        def step(self, actions):
+            hit = all(actions[a] == self._bit for a in self.agents)
+            rew = {a: (1.0 if hit else 0.0) for a in self.agents}
+            self._t += 1
+            self._bit = int(self._rng.integers(2))
+            done = self._t >= self.episode_len
+            terms = {a: done for a in self.agents}
+            truncs = {a: False for a in self.agents}
+            return self._obs(), rew, terms, truncs, {}
+
+    return MatchingEnv()
+
+
+def _matching_rows(n, seed, eps):
+    """``n`` transitions of agent a0 under the game's scripted expert (play
+    the bit; the partner does too), each action uniform with probability
+    ``eps`` (``tests/_rl_envs.py::matching_expert_rows``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    env = _matching_env()
+    obs, _ = env.reset(seed=seed)
+    rows = []
+    for _ in range(n):
+        bit = int(obs["a0"][0])
+        a = bit if rng.random() >= eps else int(rng.integers(2))
+        nxt, rew, terms, _, _ = env.step({"a0": a, "a1": bit})
+        rows.append({"obs": np.asarray(obs["a0"], np.float32), "action": a,
+                     "reward": float(rew["a0"]),
+                     "next_obs": np.asarray(nxt["a0"], np.float32),
+                     "terminated": float(terms["a0"])})
+        obs = nxt
+        if terms["a0"]:
+            obs, _ = env.reset()
+    return rows
+
+
+def _timed_updates(learner, record, dev):
+    """Wrap ``learner.update``: a copy of each batch it is handed (a dict:
+    PPO's, CQL's) goes to ``record["batches"]``, each call's seconds (the
+    card synchronised) to ``record["_s"]``."""
+    import torch
+
+    update = learner.update
+
+    def timed(*a, **kw):
+        if isinstance(a[0], dict):
+            record.setdefault("batches", []).append(
+                {k: v.copy() for k, v in a[0].items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.monotonic()
+        out = update(*a, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        record.setdefault("_s", []).append(time.monotonic() - t)
+        return out
+
+    learner.update = timed
+
+
+def _algos_multi_agent(dev, mapping, session_dir, system_pids):
+    """MultiAgentPPO with ``mapping``: ALGOS_ITERS iterations with the
+    learners on ``dev``, the first against the same config on the CPU from
+    the same weights (the runners' seeds are the config's in both); which
+    of the cluster's worker processes imported torch, and which hold the
+    card's device files, while the runners live."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+    from ray_tpu_torch.rllib.learner import leaves
+
+    pids, pmap = ALGOS_MAPPINGS[mapping]
+    spec = {"obs_dim": 2, "num_actions": 2, "hidden": (32, 32)}
+
+    def build(device):
+        return (MultiAgentPPOConfig().environment(_matching_env)
+                .multi_agent(policies={p: dict(spec) for p in pids},
+                             policy_mapping=pmap)
+                .env_runners(num_env_runners=ALGOS_RUNNERS,
+                             rollout_fragment_length=ALGOS_FRAGMENT)
+                .training(lr=3e-3, device=device).build())
+
+    card, host = build(dev), build("cpu")
+    rec = {"card": {p: {} for p in pids}, "cpu": {p: {} for p in pids}}
+    try:
+        host.set_weights(card.get_weights())
+        for algo, side, d in ((card, "card", dev),
+                              (host, "cpu", torch.device("cpu"))):
+            for p, ln in algo.learners.items():
+                _timed_updates(ln, rec[side][p], d)
+        learner_devices = sorted({str(t.device) for ln in
+                                  card.learners.values()
+                                  for t in leaves(ln.params)})
+        t = time.monotonic()
+        results = [card.train()]
+        iter_s = [time.monotonic() - t]
+        w1_card = card.get_weights()
+        first_cpu = host.train()
+        w1_cpu = host.get_weights()
+        host.stop()
+        host = None
+        for _ in range(ALGOS_ITERS - 1):
+            t = time.monotonic()
+            results.append(card.train())
+            iter_s.append(time.monotonic() - t)
+        workers = [p for p in _cluster_pids(session_dir)
+                   if p != os.getpid() and p not in system_pids]
+        with_torch = [p for p in workers if _maps_hold(p, "libtorch")]
+        first = {p: (rec["card"][p]["batches"][0],
+                     rec["cpu"][p]["batches"][0]) for p in pids}
+        batches_equal = all(
+            a.keys() == b.keys()
+            and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in first.values())
+        env_steps = ALGOS_RUNNERS * ALGOS_FRAGMENT
+        steady = float(np.mean(iter_s[1:]))
+        return dict(
+            mapping=mapping, policies=list(pids),
+            learner_devices=learner_devices, iterations=len(results),
+            ms_per_iteration=1e3 * steady,
+            first_iteration_ms=1e3 * iter_s[0],
+            learner_ms_per_update={
+                p: 1e3 * float(np.mean(rec["card"][p]["_s"][1:]))
+                for p in pids},
+            learner_first_update_ms={
+                p: 1e3 * rec["card"][p]["_s"][0] for p in pids},
+            env_steps_per_iteration=env_steps,
+            env_steps_per_s=env_steps / steady,
+            rows_per_policy_batch={p: len(first[p][0]["obs"])
+                                   for p in pids},
+            episode_return_mean=[r["episode_return_mean"] for r in results],
+            batches_equal=batches_equal,
+            first_iteration_weight_rel_err=_rel_errors(w1_card, w1_cpu),
+            first_iteration_metrics={
+                "card": {k: v for k, v in results[0].items() if "/" in k},
+                "cpu": {k: v for k, v in first_cpu.items() if "/" in k}},
+            finite=all(np.isfinite(v) for r in results
+                       for k, v in r.items() if "/" in k),
+            workers_with_torch=with_torch,
+            # ``import torch`` maps CUDA's driver library; a context opens
+            # the device files
+            workers_mapping_libcuda=[p for p in with_torch
+                                     if _maps_hold(p, "libcuda.so")],
+            runners_on_cuda={p: _nvidia_handles(p) for p in with_torch
+                             if _nvidia_handles(p)},
+            driver_handles=_nvidia_handles(os.getpid()))
+    finally:
+        card.stop()
+        if host is not None:
+            host.stop()
+
+
+def _algos_offline(dev, kind):
+    """BC or CQL from a Dataset of the matching game's expert transitions,
+    its learner on ``dev``: ALGOS_OFFLINE_EPOCHS epochs, then the share of
+    held-out seeded observations where its greedy action is the expert's."""
+    import numpy as np
+
+    import ray_tpu_torch.data as rtd
+    import ray_tpu_torch.rllib as tr
+    from ray_tpu_torch.rllib.learner import leaves
+
+    eps = 0.0 if kind == "BC" else 0.2
+    rows = _matching_rows(ALGOS_OFFLINE_ROWS, SEED, eps)
+    ds = rtd.from_items(rows, parallelism=4)
+    algo = getattr(tr, f"{kind}Config")().offline_data(ds).training(
+        device=dev).build()
+    rec = {}
+    _timed_updates(algo.learner, rec, dev)
+    results = [algo.train() for _ in range(ALGOS_OFFLINE_EPOCHS)]
+    bits = np.random.default_rng(SEED + 17).integers(0, 2, ALGOS_HELD_OUT)
+    obs = np.stack([bits, 1 - bits], axis=1).astype(np.float32)
+    acts = np.array([algo.learner.act(o) for o in obs])
+    return dict(
+        kind=kind, rows=len(rows), random_action_share=eps,
+        epochs=len(results),
+        learner_devices=sorted({str(t.device)
+                                for t in leaves(algo.learner.params)}),
+        samples_per_s=[r["samples_per_s"] for r in results],
+        learner_ms_per_update=1e3 * float(np.mean(rec["_s"][1:])),
+        updates=len(rec["_s"]),
+        last={k: v for k, v in results[-1].items()
+              if k not in ("samples_per_s",)},
+        agreement=float((acts == bits).mean()))
+
+
+def phase_algos(dev, card=""):
+    """The rllib algorithms on the port's cluster: env runners as actors on
+    the CPU, learners on the card (see the module docstring); ``card``,
+    nvidia-smi's name and power limit, stands beside each time printed."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_context
+
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "algos: TF32 products are on; the learners compute in fp32")
+    out = {"card": card}
+    t0 = time.monotonic()
+    rt.init(num_cpus=ALGOS_CPUS)
+    out["cluster_start_s"] = time.monotonic() - t0
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        for mapping in ALGOS_MAPPINGS:
+            row = _algos_multi_agent(dev, mapping, session_dir,
+                                     system_pids)
+            out[f"multi_agent_{mapping}"] = row
+            print(f"algos ({card}): MultiAgentPPO {mapping}: "
+                  f"{row['ms_per_iteration']:.1f} ms an iteration, "
+                  f"{row['env_steps_per_s']:.0f} env steps/s, learner "
+                  f"{row['learner_ms_per_update']} ms an update on the "
+                  f"card; first iteration's weights within "
+                  f"{row['first_iteration_weight_rel_err']:.2e} of the "
+                  f"CPU's", flush=True)
+        for kind in ("BC", "CQL"):
+            row = _algos_offline(dev, kind)
+            out[kind.lower()] = row
+            print(f"algos ({card}): {kind}: "
+                  f"{row['learner_ms_per_update']:.3f} ms an "
+                  f"update on the card, {row['samples_per_s'][-1]:.0f} "
+                  f"samples/s, greedy == expert on "
+                  f"{row['agreement']:.3f} of {ALGOS_HELD_OUT}", flush=True)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    out["left_after_shutdown"] = _cluster_pids(session_dir, system_pids)
+    print(json.dumps({"algos": out}), flush=True)
+    _check(not out["left_after_shutdown"],
+           f"algos: processes left after shutdown: "
+           f"{out['left_after_shutdown']}")
+    for mapping in ALGOS_MAPPINGS:
+        row = out[f"multi_agent_{mapping}"]
+        _check(row["learner_devices"] == ["cuda:0"],
+               f"algos: {mapping}: learners on {row['learner_devices']}")
+        _check(row["batches_equal"],
+               f"algos: {mapping}: the first batches differ between the "
+               "card's and the CPU's run")
+        _check(row["first_iteration_weight_rel_err"] <= TOL_RL,
+               f"algos: {mapping}: first iteration's weights "
+               f"{row['first_iteration_weight_rel_err']:.3e} from the CPU's "
+               f"(TOL_RL {TOL_RL})")
+        _check(row["finite"] and row["iterations"] == ALGOS_ITERS,
+               f"algos: {mapping}: {row}")
+        _check(len(row["workers_with_torch"]) >= ALGOS_RUNNERS
+               and not row["runners_on_cuda"]
+               and (dev.type != "cuda" or row["driver_handles"]),
+               f"algos: {mapping}: of the workers that imported torch "
+               f"{row['workers_with_torch']}, these hold the card's device "
+               f"files: {row['runners_on_cuda']} (this process, whose "
+               f"learners use the card: {row['driver_handles']})")
+    for kind in ("bc", "cql"):
+        row = out[kind]
+        _check(row["learner_devices"] == ["cuda:0"]
+               and row["agreement"] >= ALGOS_AGREE_MIN,
+               f"algos: {kind}: {row}")
+    return out
+
+
 def _path_launches(report, key):
     """``key``'s launches in the trainer, stages, apps and data phases'
     runs (the train worker's steps, both pipelines' steps over their
@@ -4716,9 +5150,18 @@ def kernels_line(report):
     return line
 
 
+def _timed(record, name, fn, *args):
+    """``fn(*args)``, its wall seconds stored under ``record[name]``."""
+    t = time.monotonic()
+    try:
+        return fn(*args)
+    finally:
+        record[name] = time.monotonic() - t
+
+
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages", "apps", "data")
+          "trainer", "stages", "apps", "data", "algos")
 
 
 def main(argv=None) -> int:
@@ -4759,62 +5202,73 @@ def main(argv=None) -> int:
     print(json.dumps({"build_info": binfo}), flush=True)
 
     report = {"card": card, "build_s": build_s, "build_info": binfo}
+    phase_s = report["phase_s"] = {}
     if "k1" in phases:
-        report["k1"] = phase_k1(dev)
+        report["k1"] = _timed(phase_s, "k1", phase_k1, dev)
     if "k23" in phases:
-        report["k23"] = phase_k23(dev)
+        report["k23"] = _timed(phase_s, "k23", phase_k23, dev)
     if "k4" in phases:
-        report["k4"] = phase_k4(dev)
+        report["k4"] = _timed(phase_s, "k4", phase_k4, dev)
     if "k5" in phases:
-        report["k5"] = phase_k5(dev)
+        report["k5"] = _timed(phase_s, "k5", phase_k5, dev)
     if "route" in phases:
-        report["route"] = phase_route(dev)
+        report["route"] = _timed(phase_s, "route", phase_route, dev)
     if phases & {"forward", "serve"}:
-        report.update(phase_model(dev, phases))
+        report.update(_timed(phase_s, "forward_serve", phase_model, dev,
+                             phases))
     if "train" in phases:
-        report["train"] = phase_train(dev)
+        report["train"] = _timed(phase_s, "train", phase_train, dev)
     if "ring" in phases:
         torch.cuda.empty_cache()
-        report["ring"] = phase_ring(dev)
+        report["ring"] = _timed(phase_s, "ring", phase_ring, dev)
     if phases & {"shard", "pipe"}:
         torch.cuda.empty_cache()
         tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
         try:
             ref_path = os.path.join(tmp, "step1.pt")
-            ref = (ref_path, _shard_reference(dev, ref_path))
+            ref = (ref_path, _timed(phase_s, "shard_reference",
+                                    _shard_reference, dev, ref_path))
             if "shard" in phases:
-                report["shard"] = phase_shard(dev, ref)
+                report["shard"] = _timed(phase_s, "shard", phase_shard,
+                                         dev, ref)
             if "pipe" in phases:
                 torch.cuda.empty_cache()
-                report["pipe"] = phase_pipe(dev, ref)
+                report["pipe"] = _timed(phase_s, "pipe", phase_pipe, dev,
+                                        ref)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     if "vit" in phases:
         torch.cuda.empty_cache()
-        report["vit"] = phase_vit(dev)
+        report["vit"] = _timed(phase_s, "vit", phase_vit, dev)
     if "moe" in phases:
         torch.cuda.empty_cache()
-        report["moe"] = phase_moe(dev)
+        report["moe"] = _timed(phase_s, "moe", phase_moe, dev)
     if "ckpt" in phases:
         torch.cuda.empty_cache()
-        report["ckpt"] = phase_ckpt(dev)
+        report["ckpt"] = _timed(phase_s, "ckpt", phase_ckpt, dev)
     if "rl" in phases:
         torch.cuda.empty_cache()
-        report["rl"] = phase_rl(dev)
+        report["rl"] = _timed(phase_s, "rl", phase_rl, dev)
     if "runtime" in phases:
-        report["runtime"] = phase_runtime(dev, report.get("serve"))
+        report["runtime"] = _timed(phase_s, "runtime", phase_runtime, dev,
+                                   report.get("serve"))
     if "trainer" in phases:
         torch.cuda.empty_cache()
-        report["trainer"] = phase_trainer(dev, report.get("train"))
+        report["trainer"] = _timed(phase_s, "trainer", phase_trainer, dev,
+                                   report.get("train"))
     if "stages" in phases:
         torch.cuda.empty_cache()
-        report["stages"] = phase_stages(dev)
+        report["stages"] = _timed(phase_s, "stages", phase_stages, dev)
     if "apps" in phases:
         torch.cuda.empty_cache()
-        report["apps"] = phase_apps(report)
+        report["apps"] = _timed(phase_s, "apps", phase_apps, report)
     if "data" in phases:
         torch.cuda.empty_cache()
-        report["data"] = phase_data(dev)
+        report["data"] = _timed(phase_s, "data", phase_data, dev)
+    if "algos" in phases:
+        torch.cuda.empty_cache()
+        report["algos"] = _timed(phase_s, "algos", phase_algos, dev, card)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     report["kernels"] = kernels_line(report)
     if report["kernels"]:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

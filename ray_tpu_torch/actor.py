@@ -206,7 +206,7 @@ class ActorClass:
         cw = get_core_worker()
         opts = self._options
         is_async = _is_async_actor(self._cls)
-        resources = build_resources(opts)  # refuses a fractional GPU here
+        resources = build_resources(opts)
         method_meta = self._method_meta()
         groups = dict(opts.get("concurrency_groups") or {})
         for mname, mopts in method_meta.items():

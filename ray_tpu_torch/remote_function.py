@@ -53,20 +53,10 @@ def build_strategy(opts: Dict[str, Any]) -> SchedulingStrategy:
     return s
 
 
-def refuse_fractional_gpus(res: Dict[str, float]) -> None:
-    """A GPU lease binds whole devices (CUDA_VISIBLE_DEVICES at spawn): a
-    request, or a placement group bundle, naming part of one raises."""
-    if res.get("GPU", 0) % 1:
-        raise ValueError(
-            f"GPU={res['GPU']}: a GPU lease takes whole devices; fractional "
-            "GPUs wait for ROADMAP Queue 1, R5")
-
-
 def build_resources(opts: Dict[str, Any], default_cpu: float = 1.0) -> Dict[str, float]:
     res = dict(opts.get("resources") or {})
     if opts.get("num_gpus"):
         res["GPU"] = float(opts["num_gpus"])
-    refuse_fractional_gpus(res)
     if "num_cpus" in opts and opts["num_cpus"] is not None:
         res["CPU"] = float(opts["num_cpus"])
     elif "CPU" not in res and not (res and opts.get("placement_group")):

@@ -1,7 +1,6 @@
-"""DQN's replay buffer and learner in PyTorch — counterpart of the
-actor-free half of ``ray_tpu/rllib/dqn.py`` (``ReplayBuffer``,
-``DQNLearner``). The config and the algorithm, which sample
-through remote env runners, wait for the port's actor runtime.
+"""DQN in PyTorch — counterpart of ``ray_tpu/rllib/dqn.py``: the replay
+buffer, the learner (on CUDA unless ``training(device="cpu")``), the config
+and the algorithm, which samples through remote env runners.
 
 Reference surface: rllib/algorithms/dqn/ and dqn_rainbow_torch_learner.py's
 double-Q loss.
@@ -9,13 +8,16 @@ double-Q loss.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import (_adam, _frozen_copy, _trainable,
                                          batch_tensors, copy_weights,
                                          init_mlp, mlp_apply, to_numpy)
@@ -125,3 +127,179 @@ class DQNLearner:
         copy_weights(self.params, weights)
         self.target_params = _frozen_copy(self.params)
         self.opt = _adam(self.params, self.lr)
+
+
+class DQNConfig:
+    """Builder-style config (reference: DQNConfig in
+    rllib/algorithms/dqn/dqn.py)."""
+
+    def __init__(self):
+        self.env_name: Optional[str] = None
+        self.env_config: dict = {}
+        self.num_env_runners = 2
+        self.rollout_fragment_length = 128
+        self.hidden = [128, 128]
+        self.lr = 5e-4
+        self.gamma = 0.99
+        self.buffer_size = 50_000
+        self.train_batch_size = 64
+        self.num_updates_per_iter = 64
+        self.learning_starts = 500
+        self.target_update_freq = 200
+        self.epsilon_initial = 1.0
+        self.epsilon_final = 0.05
+        self.epsilon_timesteps = 5_000
+        self.seed = 0
+        self.env_to_module = None
+        self.module_to_env = None
+        self.device = None  # the learner's: None is CUDA, "cpu" the CPU
+
+    def environment(self, env: str, *, env_config: Optional[dict] = None):
+        self.env_name = env
+        self.env_config = dict(env_config or {})
+        return self
+
+    def env_runners(self, *, num_env_runners: int = 2,
+                    rollout_fragment_length: int = 128,
+                    env_to_module=None, module_to_env=None):
+        self.num_env_runners = num_env_runners
+        self.rollout_fragment_length = rollout_fragment_length
+        self.env_to_module = env_to_module
+        self.module_to_env = module_to_env
+        return self
+
+    def training(self, *, lr: Optional[float] = None,
+                 gamma: Optional[float] = None,
+                 buffer_size: Optional[int] = None,
+                 train_batch_size: Optional[int] = None,
+                 num_updates_per_iter: Optional[int] = None,
+                 learning_starts: Optional[int] = None,
+                 target_update_freq: Optional[int] = None,
+                 epsilon_timesteps: Optional[int] = None,
+                 hidden: Optional[List[int]] = None, device=None):
+        for name, value in (
+            ("lr", lr), ("gamma", gamma), ("buffer_size", buffer_size),
+            ("train_batch_size", train_batch_size),
+            ("num_updates_per_iter", num_updates_per_iter),
+            ("learning_starts", learning_starts),
+            ("target_update_freq", target_update_freq),
+            ("epsilon_timesteps", epsilon_timesteps), ("hidden", hidden),
+            ("device", device),
+        ):
+            if value is not None:
+                setattr(self, name, value)
+        return self
+
+    def build(self) -> "DQN":
+        return DQN(self)
+
+
+class DQN:
+    """The algorithm driver (reference: dqn.py training_step)."""
+
+    def __init__(self, config: DQNConfig):
+        if config.env_name is None:
+            raise ValueError("config.environment(env=...) required")
+        self.config = config
+        import gymnasium as gym
+
+        probe = gym.make(config.env_name, **config.env_config)
+        obs_dim = int(np.prod(probe.observation_space.shape))
+        num_actions = int(probe.action_space.n)
+        probe.close()
+        self.learner = DQNLearner(
+            obs_dim, num_actions, hidden=tuple(config.hidden), lr=config.lr,
+            gamma=config.gamma, target_update_freq=config.target_update_freq,
+            seed=config.seed, device=config.device,
+        )
+        self.buffer = ReplayBuffer(config.buffer_size, seed=config.seed)
+        self.env_runners = [
+            EnvRunner.remote(
+                config.env_name, seed=config.seed + 1000 * (i + 1),
+                env_config=config.env_config, policy_kind="epsilon_greedy",
+                env_to_module=config.env_to_module,
+                module_to_env=config.module_to_env,
+            )
+            for i in range(config.num_env_runners)
+        ]
+        self.iteration = 0
+        self.total_steps = 0
+        self._sync_weights()
+
+    def _epsilon(self) -> float:
+        c = self.config
+        frac = min(1.0, self.total_steps / max(1, c.epsilon_timesteps))
+        return c.epsilon_initial + frac * (c.epsilon_final - c.epsilon_initial)
+
+    def _sync_weights(self):
+        w = self.learner.get_weights()
+        eps = self._epsilon()
+        ray_tpu_torch.get(
+            [ref for r in self.env_runners
+             for ref in (r.set_weights.remote(w),
+                         r.set_exploration.remote(eps))],
+            timeout=120)
+
+    def train(self) -> Dict[str, Any]:
+        t0 = time.monotonic()
+        c = self.config
+        batches = ray_tpu_torch.get(
+            [r.sample_raw.remote(c.rollout_fragment_length)
+             for r in self.env_runners],
+            timeout=600,
+        )
+        for b in batches:
+            self.buffer.add_batch(b)
+            self.total_steps += len(b["obs"])
+        metrics: Dict[str, float] = {}
+        if len(self.buffer) >= c.learning_starts:
+            for _ in range(c.num_updates_per_iter):
+                metrics = self.learner.update(
+                    self.buffer.sample(c.train_batch_size))
+        self._sync_weights()
+        returns: List[float] = []
+        for r in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.env_runners],
+            timeout=120,
+        ):
+            returns.extend(r)
+        self.iteration += 1
+        sampled = sum(len(b["obs"]) for b in batches)
+        return {
+            "training_iteration": self.iteration,
+            "num_env_steps_sampled": sampled,
+            "num_env_steps_sampled_lifetime": self.total_steps,
+            "env_steps_per_s": sampled / max(1e-9, time.monotonic() - t0),
+            "epsilon": self._epsilon(),
+            "replay_buffer_size": len(self.buffer),
+            "num_target_syncs": self.learner.updates
+            // max(1, c.target_update_freq),
+            "episode_return_mean": (
+                float(np.mean(returns)) if returns else float("nan")),
+            "num_episodes": len(returns),
+            **metrics,
+        }
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def set_weights(self, weights):
+        self.learner.set_weights(weights)
+        self._sync_weights()
+
+    def save_checkpoint(self, path: str):
+        import pickle
+
+        with open(path, "wb") as f:
+            pickle.dump(self.learner.get_weights(), f)
+        return path
+
+    def restore_checkpoint(self, path: str):
+        import pickle
+
+        with open(path, "rb") as f:
+            self.set_weights(pickle.load(f))
+
+    def stop(self):
+        for r in self.env_runners:
+            ray_tpu_torch.kill(r)

@@ -1,7 +1,8 @@
 """SAC's learner in PyTorch — counterpart of ``ray_tpu/rllib/sac.py``'s
 ``SACLearner``: a squashed-Gaussian actor, twin critics, an automatic
-temperature and polyak-averaged targets. The config and the algorithm
-wait for the port's actor runtime.
+temperature and polyak-averaged targets, on CUDA unless
+``training(device="cpu")``; then the config and the algorithm, whose env
+runners sample the squashed-Gaussian policy.
 
 Reference surface: rllib/algorithms/sac/ and sac_torch_learner.py's
 losses. The stop-gradients are JAX's: the actor's loss takes the critics
@@ -13,13 +14,17 @@ the critic and actor losses and not in its own.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.convert import nest_map
+from ray_tpu_torch.rllib.dqn import ReplayBuffer
+from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import (ADAM_BETAS, ADAM_EPS, LOG_STD_MAX,
                                          LOG_STD_MIN, _frozen_copy,
                                          _trainable, batch_tensors,
@@ -160,3 +165,160 @@ class SACLearner:
         self.target = {"q1": _frozen_copy(self.params["q1"]),
                        "q2": _frozen_copy(self.params["q2"])}
         self.opt = self._optimizer()
+
+
+class SACConfig:
+    """Builder-style config (reference: SACConfig in
+    rllib/algorithms/sac/sac.py)."""
+
+    def __init__(self):
+        self.env_name: Optional[str] = None
+        self.env_config: dict = {}
+        self.num_env_runners = 2
+        self.rollout_fragment_length = 128
+        self.hidden = [256, 256]
+        self.actor_lr = 3e-4
+        self.critic_lr = 3e-4
+        self.gamma = 0.99
+        self.tau = 0.005
+        self.buffer_size = 100_000
+        self.train_batch_size = 256
+        self.num_updates_per_iter = 64
+        self.learning_starts = 1_000
+        self.seed = 0
+        self.device = None  # the learner's: None is CUDA, "cpu" the CPU
+
+    def environment(self, env: str, *, env_config: Optional[dict] = None):
+        self.env_name = env
+        self.env_config = dict(env_config or {})
+        return self
+
+    def env_runners(self, *, num_env_runners: int = 2,
+                    rollout_fragment_length: int = 128):
+        self.num_env_runners = num_env_runners
+        self.rollout_fragment_length = rollout_fragment_length
+        return self
+
+    def training(self, *, actor_lr: Optional[float] = None,
+                 critic_lr: Optional[float] = None,
+                 gamma: Optional[float] = None, tau: Optional[float] = None,
+                 buffer_size: Optional[int] = None,
+                 train_batch_size: Optional[int] = None,
+                 num_updates_per_iter: Optional[int] = None,
+                 learning_starts: Optional[int] = None,
+                 hidden: Optional[List[int]] = None, device=None):
+        for name, value in (
+            ("actor_lr", actor_lr), ("critic_lr", critic_lr),
+            ("gamma", gamma), ("tau", tau), ("buffer_size", buffer_size),
+            ("train_batch_size", train_batch_size),
+            ("num_updates_per_iter", num_updates_per_iter),
+            ("learning_starts", learning_starts), ("hidden", hidden),
+            ("device", device),
+        ):
+            if value is not None:
+                setattr(self, name, value)
+        return self
+
+    def build(self) -> "SAC":
+        return SAC(self)
+
+
+class SAC:
+    """The algorithm driver (reference: sac.py training_step)."""
+
+    def __init__(self, config: SACConfig):
+        if config.env_name is None:
+            raise ValueError("config.environment(env=...) required")
+        self.config = config
+        import gymnasium as gym
+
+        probe = gym.make(config.env_name, **config.env_config)
+        obs_dim = int(np.prod(probe.observation_space.shape))
+        act_dim = int(np.prod(probe.action_space.shape))
+        probe.close()
+        self.learner = SACLearner(
+            obs_dim, act_dim, hidden=tuple(config.hidden),
+            actor_lr=config.actor_lr, critic_lr=config.critic_lr,
+            gamma=config.gamma, tau=config.tau, seed=config.seed,
+            device=config.device,
+        )
+        self.env_runners = [
+            EnvRunner.remote(
+                config.env_name, seed=config.seed + 1000 * (i + 1),
+                env_config=config.env_config,
+                policy_kind="squashed_gaussian",
+            )
+            for i in range(config.num_env_runners)
+        ]
+        self.buffer = ReplayBuffer(config.buffer_size, seed=config.seed)
+        self.iteration = 0
+        self.total_steps = 0
+        self._sync_weights()
+
+    def _sync_weights(self):
+        # runners only sample the policy: ship the actor subtree, not the
+        # twin critics (2/3 of the bytes) or the temperature
+        w = {"actor": self.learner.get_weights()["actor"]}
+        ray_tpu_torch.get(
+            [r.set_weights.remote(w) for r in self.env_runners], timeout=120)
+
+    def train(self) -> Dict[str, Any]:
+        t0 = time.monotonic()
+        c = self.config
+        batches = ray_tpu_torch.get(
+            [r.sample_raw.remote(c.rollout_fragment_length)
+             for r in self.env_runners],
+            timeout=600,
+        )
+        for b in batches:
+            self.buffer.add_batch(b)
+            self.total_steps += len(b["obs"])
+        metrics: Dict[str, float] = {}
+        if len(self.buffer) >= c.learning_starts:
+            for _ in range(c.num_updates_per_iter):
+                metrics = self.learner.update(
+                    self.buffer.sample(c.train_batch_size))
+        self._sync_weights()
+        returns: List[float] = []
+        for r in ray_tpu_torch.get(
+            [r.episode_returns.remote() for r in self.env_runners],
+            timeout=120,
+        ):
+            returns.extend(r)
+        self.iteration += 1
+        sampled = sum(len(b["obs"]) for b in batches)
+        return {
+            "training_iteration": self.iteration,
+            "num_env_steps_sampled": sampled,
+            "num_env_steps_sampled_lifetime": self.total_steps,
+            "env_steps_per_s": sampled / max(1e-9, time.monotonic() - t0),
+            "replay_buffer_size": len(self.buffer),
+            "episode_return_mean": (
+                float(np.mean(returns)) if returns else float("nan")),
+            "num_episodes": len(returns),
+            **metrics,
+        }
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def set_weights(self, weights):
+        self.learner.set_weights(weights)
+        self._sync_weights()
+
+    def save_checkpoint(self, path: str):
+        import pickle
+
+        with open(path, "wb") as f:
+            pickle.dump(self.learner.get_weights(), f)
+        return path
+
+    def restore_checkpoint(self, path: str):
+        import pickle
+
+        with open(path, "rb") as f:
+            self.set_weights(pickle.load(f))
+
+    def stop(self):
+        for r in self.env_runners:
+            ray_tpu_torch.kill(r)

@@ -6,7 +6,8 @@ and checkpoint/sync_actor.py (barrier/broadcast among workers).
 
 The port's copy of ``ray_tpu/train/_worker_group.py``. The group is placed
 on a SPREAD placement group of per-worker bundles (a GPU worker's bundle
-holds whole devices, one process a device in torch's idiom); rank 0's node
+holds one device by default, one process a device in torch's idiom; a
+fractional ``resources_per_worker`` shares the node's); rank 0's node
 becomes the torch.distributed rendezvous (``RT_TRAIN_COORDINATOR``, read by
 ``trainer.setup_torch_distributed``), injected as the reference's JaxConfig
 injects its coordinator (reference: python/ray/train/v2/jax/config.py:

@@ -1,6 +1,6 @@
 """Placement groups: gang-scheduled resource bundles. The port's copy of
-``ray_tpu/util/placement_group.py``: a bundle's ``"GPU"`` is whole CUDA
-devices, as a task's lease is, so a fractional one raises ``ValueError``.
+``ray_tpu/util/placement_group.py``: a bundle's ``"GPU"`` is accounted in
+floats, and a lease in it binds ``int(n)`` devices, as a task's lease does.
 
 Capability parity with the reference's placement group API (reference:
 python/ray/util/placement_group.py — placement_group(), PlacementGroup.ready(),
@@ -24,7 +24,6 @@ from ray_tpu_torch._private.protocol import (
     Bundle,
     ResourceSet,
 )
-from ray_tpu_torch.remote_function import refuse_fractional_gpus
 
 
 class PlacementGroup:
@@ -80,8 +79,6 @@ def placement_group(
     """Gang-reserve resource bundles. `bundle_label_selector` restricts all
     bundles to nodes whose labels match (reference: label_selector scheduling,
     src/ray/common/scheduling/label_selector.h:73)."""
-    for b in bundles:
-        refuse_fractional_gpus(b)
     cw = get_core_worker()
     pg_id = PlacementGroupID.from_random()
     wire_bundles = [

@@ -732,7 +732,13 @@ def import_check(root):
         "'ray_tpu_torch.data._logical.planner', "
         "'ray_tpu_torch.data.datasource', "
         "'ray_tpu_torch._private.simnode', "
-        "'ray_tpu_torch.scripts'} <= set(names), names\n"
+        "'ray_tpu_torch.scripts', 'ray_tpu_torch.rllib.env_runner', "
+        "'ray_tpu_torch.rllib.ppo', 'ray_tpu_torch.rllib.impala', "
+        "'ray_tpu_torch.rllib.appo', 'ray_tpu_torch.rllib.multi_agent', "
+        "'ray_tpu_torch.util.actor_pool', 'ray_tpu_torch.util.queue', "
+        "'ray_tpu_torch.util.multiprocessing', "
+        "'ray_tpu_torch.util.joblib', "
+        "'ray_tpu_torch.runtime_env'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1434,3 +1440,133 @@ def apps_cuda_default_errors():
         except RuntimeError as e:
             out[name] = str(e)
     return out
+
+
+# -- rllib algorithms ----------------------------------------------------------
+
+
+def _rl_pipeline(names):
+    """A port ``ConnectorPipeline`` of the named connectors (no-arg
+    classes of ``rllib/connectors.py``), or None for no names."""
+    from ray_tpu_torch.rllib import connectors
+
+    if not names:
+        return None
+    return connectors.ConnectorPipeline(
+        [getattr(connectors, n)() for n in names])
+
+
+def rl_runner(cls, args, kwargs, weights, calls, connectors=()):
+    """The port's ``EnvRunner`` or ``MultiAgentEnvRunner`` built in this
+    process (the actor's class, ``_cls``) with ``connectors`` as its
+    env_to_module pipeline, given ``weights``, then each of ``calls``,
+    (method, args, kwargs), in order: each result, or ("raised", type,
+    message)."""
+    import ray_tpu_torch.rllib as tr
+
+    kwargs = dict(kwargs)
+    if connectors:
+        kwargs["env_to_module"] = _rl_pipeline(connectors)
+    r = getattr(tr, cls)._cls(*args, **kwargs)
+    r.set_weights(weights)
+    out = []
+    for name, a, kw in calls:
+        try:
+            out.append(getattr(r, name)(*a, **kw))
+        except Exception as e:  # compared with JAX's runner's error
+            out.append(("raised", type(e).__name__, str(e)))
+    return out
+
+
+def rl_start(num_cpus):
+    """A cluster of the port in this process, for the algorithms."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=num_cpus)
+    atexit.register(rt.shutdown)
+
+
+def _rl_config(kind, builder, env_maker=None, rows=None, offline=None,
+               device="cpu"):
+    """``ray_tpu_torch.rllib.<kind>Config()`` after ``builder``'s calls,
+    (method, args, kwargs); ``env_maker`` (cloudpickled bytes) as a
+    multi-agent env; ``rows`` as a Dataset given to ``offline_data`` with
+    ``offline``'s keywords; then ``training(device=device)`` unless
+    ``device`` is None (the learners' own default)."""
+    import cloudpickle
+
+    import ray_tpu_torch.data as rtd
+    import ray_tpu_torch.rllib as tr
+
+    cfg = getattr(tr, f"{kind}Config")()
+    if env_maker is not None:
+        cfg.environment(cloudpickle.loads(env_maker))
+    if rows is not None:
+        cfg.offline_data(rtd.from_items(rows, parallelism=4),
+                         **(offline or {}))
+    for name, a, kw in builder:
+        if kw.get("env_to_module"):  # connector names: a port pipeline
+            kw = dict(kw, env_to_module=_rl_pipeline(kw["env_to_module"]))
+        getattr(cfg, name)(*a, **kw)
+    if device is not None:
+        cfg.training(device=device)
+    return cfg
+
+
+def rl_algo(kind, builder, weights=None, iters=1, restore=None, save=None,
+            evaluate=None, stop_above=None, deadline_s=None, episodes=None,
+            **cfg_kw):
+    """Build ``kind`` on the CPU (``_rl_config``), restore the checkpoint
+    at ``restore`` or copy in ``weights``, run up to ``iters`` iterations
+    (fewer once an episode return mean passes ``stop_above`` or
+    ``deadline_s`` has passed), save a checkpoint to ``save``; the results,
+    the final weights, with ``evaluate`` BC's or CQL's greedy actions on
+    those observations, with ``episodes`` the algorithm's ``evaluate``."""
+    algo = _rl_config(kind, builder, **cfg_kw).build()
+    try:
+        if restore is not None:
+            algo.restore_checkpoint(restore)
+        elif weights is not None:
+            algo.set_weights(weights)
+        start, results = time.monotonic(), []
+        for _ in range(iters):
+            results.append(algo.train())
+            ret = results[-1].get("episode_return_mean", float("nan"))
+            if stop_above is not None and ret > stop_above:
+                break
+            if deadline_s is not None and (
+                    time.monotonic() - start > deadline_s):
+                break
+        if save is not None:
+            algo.save_checkpoint(save)
+        out = {"results": results, "weights": algo.get_weights()}
+        if evaluate is not None:
+            out["actions"] = [algo.learner.act(o) for o in evaluate]
+        if episodes is not None:
+            out["evaluate"] = algo.evaluate(num_episodes=episodes)
+    finally:
+        if hasattr(algo, "stop"):
+            algo.stop()
+    return out
+
+
+def rl_build_errors(cases):
+    """What building each config raises: {name: (type, message)}, or None
+    where it built. ``cases``: {name: (kind, builder, cfg keywords)}."""
+    out = {"cuda_available": torch.cuda.is_available()}
+    for name, (kind, builder, kw) in cases.items():
+        try:
+            algo = _rl_config(kind, builder, **kw).build()
+            out[name] = None
+            if hasattr(algo, "stop"):
+                algo.stop()
+        except Exception as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def rl_names():
+    import ray_tpu_torch.rllib as tr
+
+    return list(tr.__all__), sorted(n for n in dir(tr)
+                                    if not n.startswith("_"))

@@ -437,20 +437,34 @@ def test_set_visible_devices_env():
 
 @pytest.mark.parametrize("how", ["num_gpus", "resources"])
 def test_fractional_gpu_request_is_refused(cluster, how):
-    """A GPU lease binds whole devices: a fractional request raises at
-    ``.remote()`` instead of running unbound on device 0."""
+    """No longer refused (the name is kept): a fractional GPU request is
+    accounted in floats and binds ``int(n)`` devices, as the JAX package's
+    ``num_tpus`` does (``test_torch_runtime_parity.py`` runs one program on
+    both). ``num_gpus=0.5`` binds none: the task and the actor keep the
+    node's visibility; ``GPU: 1.5`` binds one device of the two."""
     Reader = _visible_reader()
+    frac = 0.5 if how == "num_gpus" else 1.5
     opts = ({"num_gpus": 0.5} if how == "num_gpus"
             else {"resources": {"GPU": 1.5}})
+    want = {""} if frac < 1 else {"0", "1"}
 
     @rt.remote
     def f():
-        return 1
+        return os.environ.get("CUDA_VISIBLE_DEVICES", "")
 
-    with pytest.raises(ValueError, match="whole devices"):
-        f.options(**opts).remote()
-    with pytest.raises(ValueError, match="whole devices"):
-        Reader.options(**opts).remote()
+    assert rt.get(f.options(**opts).remote(), timeout=60) in want
+    a = Reader.options(**opts).remote()
+    assert rt.get(a.visible.remote(), timeout=60) in want
+    _wait_available_gpus(2.0 - frac)  # the task's lease returns
+    rt.kill(a)
+    _wait_available_gpus(2.0)
+
+
+def _wait_available_gpus(n: float, timeout: float = 30.0):
+    deadline = time.monotonic() + timeout
+    while rt.available_resources().get("GPU") != n:
+        assert time.monotonic() < deadline, (n, rt.available_resources())
+        time.sleep(0.1)
 
 
 def test_gpu_visible_devices_restricts_every_worker():

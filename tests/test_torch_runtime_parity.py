@@ -132,3 +132,65 @@ def test_program_results_are_the_expected_ones(results):
         "restarts": 1, "wait": ([0, 2], [1]), "wait_all": [3, 0],
         "error": ("TaskError", "_program.<locals>.boom", "ValueError",
                   "boom 42")}
+
+
+# -- fractional accelerator leases: num_tpus on JAX's, num_gpus on the port's
+
+
+def _fractional(rt, opt, res, env) -> dict:
+    """Half and one-and-a-half accelerator requests on a node of 2: what
+    each binds (the ids in the worker's visibility variable, "" for the
+    node's own), the float accounting, a fifth half that waits until one
+    of four is killed, and a bundle of two halves."""
+    rt.init(num_cpus=4, resources={res: 2})
+    out = {}
+    try:
+        @rt.remote(num_cpus=0)
+        def visible():
+            return os.environ.get(env, "")
+
+        @rt.remote
+        class Reader:
+            def visible(self):
+                return os.environ.get(env, "")
+
+        out["half_task"] = rt.get(
+            visible.options(**{opt: 0.5}).remote(), timeout=60)
+        ids = rt.get(visible.options(resources={res: 1.5}).remote(),
+                     timeout=60)
+        out["one_and_half_task_ids"] = len(ids.split(","))
+        half = Reader.options(num_cpus=0, **{opt: 0.5})
+        readers = [half.remote() for _ in range(4)]
+        out["half_actors"] = rt.get([r.visible.remote() for r in readers],
+                                    timeout=60)
+        out["available_after_four"] = rt.available_resources().get(res, 0.0)
+        fifth = half.remote()
+        pending = fifth.visible.remote()
+        out["fifth_waits"] = rt.wait([pending], timeout=1)[0] == []
+        rt.kill(readers[0])
+        out["fifth_after_kill"] = rt.get(pending, timeout=60)
+        for r in readers[1:] + [fifth]:
+            rt.kill(r)
+        from importlib import import_module
+
+        pgs = import_module(f"{rt.__name__}.util.placement_group")
+        pg = pgs.placement_group([{res: 0.5}, {res: 0.5}])
+        out["half_bundles_ready"] = pg.ready(timeout=60)
+        pgs.remove_placement_group(pg)
+    finally:
+        rt.shutdown()
+    return out
+
+
+def test_fractional_leases_match_jax():
+    """``num_gpus=0.5`` on the port behaves as ``num_tpus=0.5`` on JAX's
+    runtime: accounted in floats, ``int(n)`` devices bound."""
+    jax_out = _fractional(ray_tpu, "num_tpus", "TPU", "TPU_VISIBLE_CHIPS")
+    port_out = _fractional(ray_tpu_torch, "num_gpus", "GPU",
+                           "CUDA_VISIBLE_DEVICES")
+    assert port_out == jax_out
+    assert port_out == {
+        "half_task": "", "one_and_half_task_ids": 1,
+        "half_actors": [""] * 4, "available_after_four": 0.0,
+        "fifth_waits": True, "fifth_after_kill": "",
+        "half_bundles_ready": True}

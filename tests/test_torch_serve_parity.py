@@ -245,10 +245,20 @@ def test_replica_shape_matches_scheduler_mapping(pkg):
 
 
 def test_fractional_gpu_replica_is_refused():
-    """The port's leases take whole devices: a replica shape asking for
-    part of one raises, naming the ROADMAP item that holds it."""
-    with pytest.raises(ValueError, match="whole devices.*R5"):
-        _autoscaling("ray_tpu_torch").replica_shape({"num_gpus": 0.5})
+    """No longer refused (the name is kept): a replica asking for half a
+    GPU has the shape and the packing of the JAX package's half-TPU
+    replica: two fit on a node with one device, five on one with 2.5."""
+    shapes, fits = {}, {}
+    for pkg, (opt, res) in ACCELERATOR.items():
+        a = _autoscaling(pkg)
+        shape = a.replica_shape({opt: 0.5})
+        shapes[pkg] = {k.replace(res, "ACC"): v for k, v in shape.items()}
+        fits[pkg] = [a.count_placeable(shape, [_node(pkg, {"CPU": 8,
+                                                           res: n})],
+                                       pending=8) for n in (1, 2.5)]
+    assert shapes["ray_tpu_torch"] == shapes["ray_tpu"] == {
+        "ACC": 0.5, "CPU": 1.0}
+    assert fits["ray_tpu_torch"] == fits["ray_tpu"] == [2, 5]
 
 
 def test_count_placeable_first_fit_across_nodes(pkg):

@@ -370,8 +370,10 @@ def test_driver_of_a_training_run_imports_no_torch(tmp_path):
 def test_placement_group_bundles_hold_whole_gpus(ray_init):
     """``util.placement_group`` on the port's control store: two 1-GPU
     bundles commit, an actor in each sees its own device, the group's
-    removal returns them; a fractional GPU bundle raises as a fractional
-    task lease does."""
+    removal returns them. A fractional GPU bundle commits, as the JAX
+    package's fractional TPU bundle does, and an actor holding half a GPU
+    in it binds no device: it sees the node's (the name is kept from when
+    such a bundle raised)."""
     from ray_tpu_torch.util.placement_group import (placement_group,
                                                     remove_placement_group)
 
@@ -391,8 +393,40 @@ def test_placement_group_bundles_hold_whole_gpus(ray_init):
     for p in probes:
         rt.kill(p)
     remove_placement_group(pg)
-    with pytest.raises(ValueError, match="whole devices"):
-        placement_group([{"GPU": 0.5}])
+    half = placement_group([{"GPU": 0.5}, {"GPU": 0.5}])
+    assert half.ready(timeout=60)
+    probes = [Probe.options(num_gpus=0.5, num_cpus=0, placement_group=half,
+                            placement_group_bundle_index=i).remote()
+              for i in range(2)]
+    assert rt.get([p.visible.remote() for p in probes], timeout=60) == [
+        None, None]
+    for p in probes:
+        rt.kill(p)
+    remove_placement_group(half)
+
+
+def test_fractional_gpu_workers_share_the_node(ray_init, tmp_path):
+    """``resources_per_worker={"GPU": 0.5}``: two workers of a gang hold
+    half a GPU each, bind no device and see the node's, as the JAX
+    package's ``{"TPU": 0.5}`` workers do; the halves return when the run
+    ends."""
+
+    def train_fn():
+        from ray_tpu_torch import train
+
+        train.report({"step": 0,
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+    trainer = TorchTrainer(
+        train_fn, scaling_config=ScalingConfig(
+            num_workers=2, resources_per_worker={"GPU": 0.5, "CPU": 1}),
+        run_config=_run_cfg(tmp_path, "half_gpus"))
+    result = trainer.fit()
+    assert [m["visible"] for m in result.metrics_history] == [None, None]
+    deadline = time.monotonic() + 30
+    while rt.available_resources().get("GPU") != 2.0:
+        assert time.monotonic() < deadline, rt.available_resources()
+        time.sleep(0.1)
 
 
 def test_sim_nodes_join_a_cluster_and_leave_with_it():
