@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs twenty-one phases and fails (exit 1) if any check fails:
+runs twenty-two phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -50,29 +50,33 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             collective staged through host memory. Ring and Ulysses attention
             forward and backward at b1 h8 kvh4 hd128 over s 32768 against the
             whole-sequence flash attention, K4 / K2 / K3 launches counted;
-            then ``make_train_step`` on the flagship with "ring" at b1 s8192
-            (2048 a rank), one warm-up and 3 steps, losses against a
-            single-process "flash" run. Its times are not the ring's speed:
+            then ``make_train_step`` on the flagship at 4 of its 16 layers
+            (RING_TRAIN_LAYERS, full width: a depth cut for the time
+            budget) with "ring" at b1 s8192 (2048 a rank), one warm-up and
+            3 steps, losses against a single-process "flash" run. Its times are not the ring's speed:
             the ranks time-slice the card.
 * shard   — sharded training on fsdp 2 x tp 2: four processes on the card
             over gloo as in ``ring``. ``make_train_step`` on the flagship
-            ("flash", remat "dots") at b8 x 2048 from one seed, each rank
+            at 8 of its 16 layers (SHARD_LAYERS, full width: a depth cut
+            for the time budget; ``pipe`` and their single-device
+            reference share it) ("flash", remat "dots") at b8 x 2048 from
+            one seed, each rank
             holding a quarter of the parameters and AdamW moments: one
             warm-up and 2 timed steps, each loss against the single-device
             "flash" step, the gathered gradients of the first step and the
-            parameters after it against its, K1 32 / K2 16 / K3 16
+            parameters after it against its, K1 16 / K2 8 / K3 8
             launches a step a rank at the rank's shape (b4 h4 kvh2 s2048
             hd128), the step's seconds and each rank's peak memory. Its
             times measure time-slicing too.
 * pipe    — GPipe over pp 4 (``parallel/pipeline.py``): four processes
-            on the card over gloo, as in ``shard``, each a stage of 4 of
-            the flagship's 16 layers ("flash", no remat) at full width;
+            on the card over gloo, as in ``shard``, each a stage of 2 of
+            the shard phase's 8 layers ("flash", no remat) at full width;
             8 microbatches of one sequence of the b8 x 2048 train batch,
             one warm-up and 2 timed steps. Gates: each loss within 1e-2 of
             the single-device "flash" step; each rank's step-one
             gradients and parameters against the reference's layers
-            [4s, 4s + 4), tok_emb, norm and lm_head (the shard phase's
-            tolerances); K1 = K2 = K3 = 32 launches a step a rank, all at
+            [2s, 2s + 2), tok_emb, norm and lm_head (the shard phase's
+            tolerances); K1 = K2 = K3 = 16 launches a step a rank, all at
             (1, 8, 4, 2048, 128) causal, K4 none; 201 MB of hand-offs a
             step. Step ms and peak memory a rank, the bubble share 3/11;
             its times measure time-slicing too. ``k1``/``k23`` hold K1-K3
@@ -97,7 +101,9 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             single shard's. ms a call, tokens/s, the exchange's bytes; the
             plain products run no kernel of the port.
 * ckpt    — checkpoints (``ray_tpu_torch.train``) of the shard phase's
-            state, four processes on the card over gloo: each rank takes
+            state at 4 of the flagship's 16 layers (CKPT_LAYERS, full
+            width: a depth cut for the time budget), four processes on the
+            card over gloo: each rank takes
             step 1, saves its train state in the JAX package's layout
             through ``AsyncCheckpointWriter`` into a ``CheckpointManager``
             staging dir (rank 0 finalizes with 4 ranks) and takes step 2
@@ -108,7 +114,7 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             restores the 4 rank files into one device
             (``load_consolidated``) and takes step 2, within the shard
             phase's tolerances of the sharded loss and parameters. K1/K2/K3
-            32/16/16 on each restored step. Bytes a rank and in all, the
+            8/4/4 on each restored step. Bytes a rank and in all, the
             seconds ``save`` blocks, the write's and both restores' seconds
             and GB/s, the consolidating process's peak host memory.
 * rl      — the rllib learners (PPO, IMPALA's V-trace, APPO, DQN, SAC, BC
@@ -143,20 +149,22 @@ runs twenty-one phases and fails (exit 1) if any check fails:
 * trainer — ``TorchTrainer`` (``ray_tpu_torch.train``) on the port's
             cluster (``init(num_cpus=4)``, the GPU detected): one
             ``use_gpu`` worker (a ``{"GPU": 1}`` lease) trains the
-            flagship (the train phase's config, seed, batch, lr and remat,
-            "flash") for 9 steps, reporting each and checkpointing the
+            flagship at 4 of its 16 layers (TRAINER_LAYERS, full width: a
+            depth cut for the time budget; the train phase's seed, batch,
+            lr and remat, "flash") for 9 steps, reporting each and
+            checkpointing the
             train state after steps 2, 5 and 8 (``num_to_keep=2``); its
             first attempt exits after step 4's report, the controller
             restarts it on a fresh worker from the step-2 checkpoint and
             it runs steps 3 to 9. Gates: every loss within 1e-2 of the
-            train phase's at the same step; the resumed steps 3 and 4
-            within 1e-5 of the killed run's; K1/K2/K3 32/16/16 a step in
+            same config's in-process step; the resumed steps 3 and 4
+            within 1e-5 of the killed run's; K1/K2/K3 8/4/4 a step in
             the worker, on the card; checkpoints 5 and 8 kept, the 8 read
             by ``Checkpoint.load_state`` in this process stepping to the
             worker's step-9 loss (1e-5); no process left after shutdown.
             Cluster and worker start s, step ms in the worker against the
             train phase's, the s each report blocks, kill to the resumed
-            worker's first step.
+            worker's first step; in-process step ms at the same depth.
 * stages  — the flagship trained by 2 pipeline-stage actors of 8 layers
             (``train/pipeline_actors.py``, "flash", no remat), 4
             microbatches of 2 x 2048 of the train batch, 3 steps by
@@ -173,8 +181,10 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             microbatch (2, 8, 4, 2048, 128).
 * apps    — the port's serve library and LLM apps on its cluster
             (``init(num_cpus=8)``, the GPU detected), Llama-3-8B at full
-            width and depth (random bf16 weights from the seed) in every
-            process, the serve phase's engine config, greedy decoding, 4
+            width and 8 of its 32 layers (APPS_LAYERS: a depth cut for the
+            time budget; random bf16 weights from the seed) in every
+            process and in the in-process references, the serve phase's
+            engine config, greedy decoding, 4
             prompts of the serve phase's lengths (37 / 130 / 300 / 511 byte
             tokens), a urllib client. ``build_openai_app`` behind
             ``serve.start(http_port=0)``: one batched POST of the 4 prompts
@@ -183,13 +193,13 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             batch's text, ending with [DONE]. ``build_pd_app`` (1 prefill
             worker, 1 decode engine): each response's text and completion
             tokens, and the token ids the decode engine streamed, the
-            in-process ``PagedEngine``'s; K1 32 a prompt in the prefill
+            in-process ``PagedEngine``'s; K1 8 a prompt in the prefill
             worker, 0 in the decode engine; a repeated prompt a
             prefill-cache hit (no launch) on the same decode replica; each
-            hand-off's KV bytes 2 x 32 x blocks x 16 x 8 x 128 x 2 (64 MiB
+            hand-off's KV bytes 2 x 8 x blocks x 16 x 8 x 128 x 2 (16 MiB
             at 511 tokens).
             ``build_dp_app`` (dp 2, the prompts at once): both ranks answer,
-            the same texts, counts and ids, 128 K1 launches over the two
+            the same texts, counts and ids, 32 K1 launches over the two
             engines.
             Then a deployment of this script's asking for 2 one-GPU
             replicas (``min_replicas=2``): on one card one runs (seeing one
@@ -197,7 +207,7 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             {"GPU": 1} demand; on two or more both run. Each app is deleted
             before the next, and the actors its ingress made are killed
             (as in the JAX package, they outlive the replica), so at most
-            three 8B copies share the card, none leased. No process of the cluster is left
+            three model copies share the card, none leased. No process of the cluster is left
             after ``serve.shutdown()`` and ``shutdown()``. Printed: each
             app's start s, TTFT p50 through HTTP SSE and the PD and DP
             ingresses (one-token requests) beside the runtime phase's actor
@@ -221,8 +231,9 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             into pinned memory and the copy, timed alone on the same
             batches), the device's idle share over one
             profiled step (its batch fetched inside it), peak memory.
-            (b) ``llm.batch_completions`` at llama3_8b (random bf16 weights
-            from the seed) over ``from_items`` of the apps phase's 4
+            (b) ``llm.batch_completions`` at llama3_8b at the apps phase's
+            8 of 32 layers (random bf16 weights from the seed; the
+            in-process server too) over ``from_items`` of the apps phase's 4
             prompts, ``parallelism=2``, 32 greedy tokens; each map worker
             builds its model on the card. Gates: 4 rows, each completion
             the in-process ``LLMServer``'s for the block the row is in (what
@@ -254,6 +265,33 @@ runs twenty-one phases and fails (exit 1) if any check fails:
             iteration, learner ms an update, env steps/s, samples/s.
             PPO and DQN on CartPole wait for gymnasium on the card's
             machine (not installed there).
+
+* collective — the device object plane and the collective groups
+            (``ray_tpu_torch.util.collective``, ``experimental/rdt.py``,
+            ``experimental/device_channel.py``, ``gpu/slice.py``) on one
+            cluster (``init(num_cpus=4)``, the GPU detected). rdt: a 256 MiB
+            bf16 CUDA tensor put by this process is read back by it as the
+            tensor itself (``device_hits`` + 1, no host-to-device copy under
+            ``torch.profiler``); after ``add_(1)`` a get rebuilds the
+            put-time values from the host bytes (``host_rebuilds`` + 1, the
+            profiler seeing the copy); a num_gpus=1 actor reads it
+            host-staged with the put-time checksums; the get times printed
+            side by side. That actor then makes a one-rank NCCL group (its
+            own ``ProcessGroupNCCL``) and runs one all-reduce through it
+            (NCCL's version printed; one card cannot hold two NCCL ranks).
+            A gloo group of two num_gpus=0.5 actors carrying CUDA tensors:
+            allreduce and reducescatter (sum, product, max, min), reduce,
+            broadcast, allgather, permute, barrier and send/recv, each
+            exactly its numpy twin on integer-valued data, outputs on the
+            card (send/recv's on the CPU, in their dtype), inputs
+            unchanged; then 3 ``DeviceChannel`` transfers of a (4096, 4096)
+            bf16 tensor, equal on arrival, on the card. Gang placement:
+            ``slice_placement_group`` of the node's own NVLink domain (its
+            ``gpu-pod-type`` and ``gpu-topology`` labels), ``dispatch`` on
+            it (node id, CUDA_VISIBLE_DEVICES), then a 1-worker
+            ``TorchTrainer`` with ``ScalingConfig(use_gpu=True, topology=,
+            accelerator_type=)`` and a numpy train fn. No process of the
+            cluster is left after ``shutdown()``.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -1410,6 +1448,10 @@ RING_LABEL = "4 ranks time-sliced on one card, gloo through host"
 RING_ATTN = (1, 8, 4, 32768, 128)  # b, h, kvh, s, hd: the flagship's heads
 RING_ATTN_IMPLS = ("ring", "ulysses", "flash")
 RING_TRAIN_BATCH, RING_TRAIN_SEQ, RING_TRAIN_STEPS = 1, 8192, 3
+# the flagship's ring training at full width and 4 of its 16 layers (a
+# depth cut for chip_smoke's time budget; the train phase runs all 16)
+RING_TRAIN_LAYERS = 4
+RING_TRAIN_CFG = dict(TRAIN_CFG, n_layers=RING_TRAIN_LAYERS)
 RING_TIMEOUT_S = 600
 GLOO_TIMEOUT_S = 300
 
@@ -1510,7 +1552,7 @@ def _ring_rank_train(dev, mesh):
     from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="ring")
+    cfg = LlamaConfig(**RING_TRAIN_CFG, attention_impl="ring")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -1622,7 +1664,7 @@ def _flash_train_losses(dev):
 
     from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**RING_TRAIN_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -1691,9 +1733,9 @@ def phase_ring(dev):
     launches = {k: sum(p["launches"][k] for p in per)
                 for k in per[0]["launches"]}
     hops = RING_SP * (RING_SP + 1) // 2  # non-skipped hops over the ranks
-    layers = TRAIN_CFG["n_layers"]
+    layers = RING_TRAIN_CFG["n_layers"]
     train = dict(
-        config=dict(TRAIN_CFG, attention_impl="ring", remat=TRAIN_REMAT,
+        config=dict(RING_TRAIN_CFG, attention_impl="ring", remat=TRAIN_REMAT,
                     loss_chunk=0, batch=RING_TRAIN_BATCH, seq=RING_TRAIN_SEQ,
                     sp=RING_SP, lr=TRAIN_LR),
         losses=losses, flash_losses=flash_losses,
@@ -1726,6 +1768,12 @@ def phase_ring(dev):
 
 
 SHARD_MESH = dict(fsdp=2, tp=2)
+# the flagship at full width and 8 of its 16 layers in the shard and pipe
+# phases and their single-device reference (a depth cut for chip_smoke's
+# time budget; the train phase runs all 16): K1/K2/K3 16/8/8 a step a
+# shard rank, 2 layers a pipe stage
+SHARD_LAYERS = 8
+SHARD_CFG = dict(TRAIN_CFG, n_layers=SHARD_LAYERS)
 SHARD_LABEL = "4 ranks time-sliced on one card, gloo through host"
 SHARD_STEPS = 2            # timed, after one warm-up step
 TOL_SHARD_LOSS = 1e-2      # absolute, each step against one device
@@ -1747,7 +1795,7 @@ def _shard_reference(dev, path):
     from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
     from ray_tpu_torch.parallel.mesh import tree_map
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**SHARD_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -1810,7 +1858,7 @@ def _shard_rank(dev, mesh, ref_path):
     for name, arg in (("all_reduce", 0), ("all_gather", 1),
                       ("all_to_all_single", 1)):
         setattr(dist, name, timed(getattr(dist, name), arg))
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**SHARD_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -1869,7 +1917,7 @@ def phase_shard(dev, ref):
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel.mesh import tree_leaves
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**SHARD_CFG, attention_impl="flash")
     ref_path, ref_losses = ref
     t0 = time.monotonic()
     per = _run_ranks(dev, "shard", SHARD_MESH, _shard_rank, ref_path)
@@ -1888,7 +1936,7 @@ def phase_shard(dev, ref):
     leaf_errors = per[0]["leaf_errors"]
     grad_errors = per[0]["grad_errors"]
     out = dict(
-        config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+        config=dict(SHARD_CFG, attention_impl="flash", remat=TRAIN_REMAT,
                     loss_chunk=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     lr=TRAIN_LR, mesh=SHARD_MESH),
         label=SHARD_LABEL, wall_s=wall_s, losses=losses,
@@ -1943,8 +1991,9 @@ PIPE_LABEL = "4 ranks time-sliced on one card, gloo through host"
 
 def _pipe_rank(dev, mesh, ref_path):
     """One stage of the pp 4 mesh: the flagship's pipelined train step on
-    its 4 layers, one warm-up step (after which its gradients and
-    parameters are held to ``ref_path``'s layers [4s, 4s + 4), tok_emb,
+    its SHARD_LAYERS / 4 layers, one warm-up step (after which its
+    gradients and parameters are held to ``ref_path``'s layers of stage
+    s, tok_emb,
     norm and lm_head), then PIPE_STEPS timed steps, each with the launches
     counted from zero, the (q, k, causal) of every attention call recorded
     and the bytes this stage sends to its neighbours added up."""
@@ -1974,7 +2023,7 @@ def _pipe_rank(dev, mesh, ref_path):
         return exchange(ring, sends, *args, **kwargs)
 
     AxisRing.exchange = counted
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**SHARD_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = \
         tpp.make_pipeline_train_step(cfg, mesh, PIPE_MICRO,
                                      learning_rate=TRAIN_LR, device=dev)
@@ -2034,7 +2083,7 @@ def phase_pipe(dev, ref):
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel.mesh import tree_leaves
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**SHARD_CFG, attention_impl="flash")
     ref_path, ref_losses = ref
     t0 = time.monotonic()
     per = _run_ranks(dev, "pipe", PIPE_MESH, _pipe_rank, ref_path)
@@ -2050,7 +2099,7 @@ def phase_pipe(dev, ref):
     want_bytes = 2 * (S - 1) * M * mb * TRAIN_SEQ * cfg.dim * 2
     losses = per[0]["losses"]
     out = dict(
-        config=dict(TRAIN_CFG, attention_impl="flash", remat=False,
+        config=dict(SHARD_CFG, attention_impl="flash", remat=False,
                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
                     mesh=PIPE_MESH, microbatches=M),
         label=PIPE_LABEL, wall_s=wall_s, losses=losses,
@@ -2465,6 +2514,11 @@ def phase_moe(dev):
 # shard; the write runs on a background thread while the next step runs
 CKPT_MESH = SHARD_MESH
 CKPT_LABEL = "4 ranks time-sliced on one card, gloo through host"
+# the flagship at full width and 4 of its 16 layers (the depth cut keeps
+# the phase inside chip_smoke's time budget; the shard phase runs all 16):
+# K1/K2/K3 8/4/4 a restored step
+CKPT_LAYERS = 4
+CKPT_CFG = dict(TRAIN_CFG, n_layers=CKPT_LAYERS)
 TOL_CKPT_LOSS_REL = 1e-6   # same-world step-2 loss against the uninterrupted
 
 
@@ -2501,7 +2555,7 @@ def _ckpt_rank(dev, mesh, root, ref_path):
     from ray_tpu_torch.train._checkpoint import _flatten_with_paths
 
     rank = dist.get_rank()
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**CKPT_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, mesh, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -2608,7 +2662,7 @@ def _ckpt_consolidate(dev, mesh, root, ref_path):
     from ray_tpu_torch.train import (Checkpoint, load_train_state,
                                      train_state_tree)
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**CKPT_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
@@ -2641,7 +2695,7 @@ def _ckpt_consolidate(dev, mesh, root, ref_path):
 
 def phase_ckpt(dev):
     """Checkpoints of the flagship's sharded train state at full width and
-    depth (``CKPT_LABEL``): save while the next step runs, a same-world
+    CKPT_LAYERS layers (``CKPT_LABEL``): save while the next step runs, a same-world
     restore held bitwise and to the uninterrupted step 2, and a
     cross-world restore into one device held to the shard phase's
     tolerances."""
@@ -2652,7 +2706,7 @@ def phase_ckpt(dev):
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel.mesh import tree_leaves
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**CKPT_CFG, attention_impl="flash")
     world = math.prod(CKPT_MESH.values())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2675,7 +2729,7 @@ def phase_ckpt(dev):
                          k3=cfg.n_layers, k4=0)
     gb = 1e9
     out = dict(
-        config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+        config=dict(CKPT_CFG, attention_impl="flash", remat=TRAIN_REMAT,
                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
                     mesh=CKPT_MESH),
         label=CKPT_LABEL, wall_s=wall_s, files=files,
@@ -3474,10 +3528,15 @@ def phase_runtime(dev, inproc=None):
 
 
 TRAINER_CPUS = 4
+# the flagship at full width and 4 of its 16 layers (the depth cut keeps
+# the phase inside chip_smoke's time budget; the train phase runs all 16):
+# K1/K2/K3 8/4/4 a step
+TRAINER_LAYERS = 4
+TRAINER_CFG = dict(TRAIN_CFG, n_layers=TRAINER_LAYERS)
 TRAINER_STEPS = 9
 TRAINER_CKPT_STEPS = (2, 5, 8)
 TRAINER_KILL_AFTER = 4     # the first attempt exits after this step's report
-TOL_TRAINER_LOSS = 1e-2    # absolute, against the in-process train phase
+TOL_TRAINER_LOSS = 1e-2    # absolute, against the same steps in process
 TOL_TRAINER_RESUME = 1e-5  # a resumed step against the killed run's
 
 
@@ -3562,33 +3621,36 @@ def _trainer_fn(config):
 
 
 def _trainer_reference(dev):
-    """Losses of TRAINER_STEPS in-process steps of the train phase's run
-    (its seed, batch, lr and remat), when the train phase did not run."""
+    """TRAINER_STEPS in-process steps of the worker's run (TRAINER_CFG, the
+    train phase's seed, batch, lr and remat): the losses and the median
+    step ms after the first."""
     import torch
 
     from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
 
-    cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+    cfg = LlamaConfig(**TRAINER_CFG, attention_impl="flash")
     init_state, shard_state, train_step, data_dev = make_train_step(
         cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
         device=dev)
     state = shard_state(init_state(SEED))
     tokens = _train_tokens(data_dev)
-    losses = []
+    losses, step_s = [], []
     for _ in range(TRAINER_STEPS):
+        torch.cuda.synchronize()
+        t = time.monotonic()
         state, loss = train_step(state, tokens)
         losses.append(float(loss))
+        step_s.append(time.monotonic() - t)
     del state
     torch.cuda.empty_cache()
-    return losses
+    return losses, 1e3 * sorted(step_s[1:])[len(step_s[1:]) // 2]
 
 
-def phase_trainer(dev, inproc=None):
+def phase_trainer(dev):
     """``TorchTrainer`` on the port's cluster (see the module docstring):
-    the flagship trained in a num_gpus=1 train worker across a kill of
-    the worker, held to the in-process train phase (``inproc``: its
-    report, losses a step and step ms; the losses are computed here when
-    it is None)."""
+    the flagship at TRAINER_LAYERS layers trained in a num_gpus=1 train
+    worker across a kill of the worker, held to the same steps in
+    process."""
     import numpy as np
     import torch
 
@@ -3600,8 +3662,7 @@ def phase_trainer(dev, inproc=None):
                                      load_train_state, train_state_tree)
 
     t_phase = time.monotonic()
-    train_losses = (inproc["losses"] if inproc is not None
-                    else _trainer_reference(dev))
+    train_losses, inproc_step_ms = _trainer_reference(dev)
     torch.cuda.empty_cache()
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
@@ -3615,7 +3676,7 @@ def phase_trainer(dev, inproc=None):
     session_dir = global_context().session_dir
     try:
         config = dict(
-            cfg=TRAIN_CFG, lr=TRAIN_LR, remat=TRAIN_REMAT, seed=SEED,
+            cfg=TRAINER_CFG, lr=TRAIN_LR, remat=TRAIN_REMAT, seed=SEED,
             tokens=_train_tokens_np(), steps=TRAINER_STEPS,
             ckpt_steps=TRAINER_CKPT_STEPS, kill_after=TRAINER_KILL_AFTER,
             marker=os.path.join(tmp, "killed"),
@@ -3643,7 +3704,7 @@ def phase_trainer(dev, inproc=None):
 
         # the kept step-8 checkpoint, read in the driver, gives the
         # worker's step-9 loss
-        cfg = LlamaConfig(**TRAIN_CFG, attention_impl="flash")
+        cfg = LlamaConfig(**TRAINER_CFG, attention_impl="flash")
         init_state, shard_state, train_step, data_dev = make_train_step(
             cfg, learning_rate=TRAIN_LR, remat=TRAIN_REMAT, loss_chunk=0,
             device=dev)
@@ -3666,9 +3727,10 @@ def phase_trainer(dev, inproc=None):
         step_s = sorted(steady(first) + steady(second))
         worker_loss = {m["step"]: m["loss"] for m in second}
         out.update(
-            config=dict(TRAIN_CFG, attention_impl="flash", remat=TRAIN_REMAT,
-                        batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
-                        steps=TRAINER_STEPS, ckpt_steps=TRAINER_CKPT_STEPS,
+            config=dict(TRAINER_CFG, attention_impl="flash",
+                        remat=TRAIN_REMAT, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        lr=TRAIN_LR, steps=TRAINER_STEPS,
+                        ckpt_steps=TRAINER_CKPT_STEPS,
                         kill_after=TRAINER_KILL_AFTER),
             fit_s=fit_s,
             worker_start_s=first[0]["t_cuda"] - t_fit,
@@ -3685,7 +3747,7 @@ def phase_trainer(dev, inproc=None):
             step_ms=[1e3 * x for x in step_s],
             report_s={m["prev_report"][0]: m["prev_report"][1]
                       for m in hist + final if m["prev_report"]},
-            in_process_step_ms=inproc and inproc["step_ms"],
+            in_process_step_ms=inproc_step_ms,
             launches=launches,
             launches_per_step=[m["launches"] for m in hist],
             devices=sorted({(m["device"], m["device_name"], m["visible"])
@@ -3698,7 +3760,8 @@ def phase_trainer(dev, inproc=None):
               f"up {out['worker_start_s']:.2f} s after fit() (its CUDA "
               f"context {out['worker_cuda_s']:.2f} s of it); step "
               f"{out['step_ms_median']:.1f} ms in the worker against "
-              f"{out['in_process_step_ms']} ms in process; kill to "
+              f"{out['in_process_step_ms']:.1f} ms in process (both at "
+              f"{TRAINER_LAYERS} layers); kill to "
               f"the resumed worker's first step "
               f"{out['kill_to_resumed_step_s']:.2f} s; report blocks "
               f"{out['report_s']} s", flush=True)
@@ -3715,7 +3778,7 @@ def phase_trainer(dev, inproc=None):
     out["phase_s"] = time.monotonic() - t_phase
     print(f"trainer: phase {out['phase_s']:.1f} s", flush=True)
 
-    L = TRAIN_CFG["n_layers"]
+    L = TRAINER_CFG["n_layers"]
     _check(out["steps_first"] == list(range(1, TRAINER_KILL_AFTER + 1))
            and out["steps_second"] == list(
                range(TRAINER_CKPT_STEPS[0] + 1, TRAINER_STEPS + 1)),
@@ -3887,6 +3950,12 @@ def phase_stages(dev):
 
 # the apps phase: the port's serve library and LLM apps on the card
 APPS_CPUS = 8
+# Llama-3-8B at full width and 8 of its 32 layers in every process of the
+# apps (the depth cut keeps the phase inside chip_smoke's time budget; the
+# serve and runtime phases run all 32), held to in-process references at
+# the same depth: K1 8 a prompt
+APPS_LAYERS = 8
+APPS_MODEL = (RUNTIME_MODEL[0], dict(RUNTIME_MODEL[1], n_layers=APPS_LAYERS))
 APPS_STORE_BYTES = 1 << 30     # the prefills' KV until the ingress drops it
 APPS_INIT_TIMEOUT_S = 300.0    # a replica's construction gate: an 8B build
 APPS_LEASE_WAIT_S = 15.0
@@ -4132,10 +4201,10 @@ def phase_apps(report):
 
     out = {}
     tok = ByteTokenizer()
-    model, overrides = RUNTIME_MODEL
+    model, overrides = APPS_MODEL
     config = LLMConfig(
-        model_id=f"{model}-random", model=model, seed=SEED,
-        max_new_tokens=SERVE_MAX_TOKENS,
+        model_id=f"{model}-{APPS_LAYERS}-layers-random", model=model,
+        seed=SEED, max_new_tokens=SERVE_MAX_TOKENS,
         model_overrides={k: getattr(torch, v) if k.endswith("dtype") else v
                          for k, v in overrides.items()})
     prompts = _apps_prompts(SEED + 2)
@@ -4666,9 +4735,10 @@ def phase_data(dev):
         # (b) batch_completions: the in-process server first, on the
         # blocks the map tasks get (from_items cuts 4 rows into 2 x 2)
         torch.cuda.empty_cache()
-        model, overrides = RUNTIME_MODEL
+        model, overrides = APPS_MODEL
         config = LLMConfig(
-            model_id=f"{model}-random", model=model, seed=SEED,
+            model_id=f"{model}-{APPS_LAYERS}-layers-random", model=model,
+            seed=SEED,
             max_new_tokens=SERVE_MAX_TOKENS,
             model_overrides={k: getattr(torch, v) if k.endswith("dtype")
                              else v for k, v in overrides.items()})
@@ -5060,6 +5130,376 @@ def phase_algos(dev, card=""):
     return out
 
 
+# The device object plane and the collective groups on the card
+# (util/collective, experimental/rdt.py, experimental/device_channel.py,
+# gpu/slice.py): one cluster, as a user's program would hold one
+COLLECTIVE_CPUS = 4
+COLLECTIVE_STORE_BYTES = 1 << 30   # the 256 MiB put, and its rebuild's read
+COLLECTIVE_TENSOR_SHAPE = RUNTIME_TENSOR_SHAPE   # bf16: 256 MiB
+COLLECTIVE_WORLD = 2
+COLLECTIVE_ROWS = (4, 1 << 20)     # fp32, integer-valued: 16 MiB a rank
+COLLECTIVE_CHANNEL_SHAPE = (4096, 4096)   # bf16: 32 MiB a transfer
+COLLECTIVE_CHANNEL_SENDS = 3
+COLLECTIVE_OPS = ("sum", "product", "max", "min")
+
+
+def _collective_rows(rank):
+    """Rank ``rank``'s integer-valued fp32 rows in [-3, 3], so every op of
+    two ranks is exact in fp32 (a product of two is at most 9)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 40 + rank)
+    return rng.integers(-3, 4, COLLECTIVE_ROWS).astype(np.float32)
+
+
+class _GlooMember:
+    """A num_gpus=0.5 rank of a gloo group carrying CUDA tensors (staged
+    through host memory): every op and send/recv against the numpy twin,
+    then the device channel's transfers."""
+
+    def __init__(self, rank):
+        self.rank = rank
+
+    def run(self, group):
+        import functools
+
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch.experimental.device_channel import DeviceChannel
+        from ray_tpu_torch.util import collective as col
+
+        dev = torch.device("cuda", 0)
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        rank, world = self.rank, COLLECTIVE_WORLD
+        t0 = time.monotonic()
+        col.init_collective_group(world, rank, backend="gloo",
+                                  group_name=group)
+        init_s = time.monotonic() - t0
+        xs = [_collective_rows(r) for r in range(world)]
+        x = torch.from_numpy(xs[rank]).to(dev)
+        keep = x.clone()
+        npop = {"sum": np.add, "product": np.multiply, "max": np.maximum,
+                "min": np.minimum}
+        checks = {}
+
+        def check(name, got, want, device="cuda"):
+            checks[name] = (got.device.type == device and bool(np.array_equal(
+                got.cpu().numpy(), want)), str(got.device))
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for op in COLLECTIVE_OPS:
+            check(f"allreduce_{op}", col.allreduce(x[0], op=op,
+                                                   group_name=group),
+                  functools.reduce(npop[op], [a[0] for a in xs]))
+            check(f"reducescatter_{op}", col.reducescatter(
+                x[:world], op=op, group_name=group),
+                functools.reduce(npop[op], [a[rank] for a in xs]))
+        check("reduce", col.reduce(x[1], dst_rank=1, group_name=group),
+              xs[0][1] + xs[1][1] if rank == 1 else xs[rank][1])
+        check("broadcast", col.broadcast(x[2], src_rank=1, group_name=group),
+              xs[1][2])
+        check("allgather", col.allgather(x[3], group_name=group),
+              np.stack([a[3] for a in xs]))
+        check("permute", col.permute(x[0], [(0, 1), (1, 0)],
+                                     group_name=group), xs[1 - rank][0])
+        col.barrier(group_name=group)
+        if rank == 0:
+            col.send(x[1], dst_rank=1, group_name=group)
+        else:  # a tensor arrives on the CPU, in its own dtype
+            check("send_recv", col.recv(src_rank=0, group_name=group),
+                  xs[0][1], device="cpu")
+        col.barrier(group_name=group)
+        torch.cuda.synchronize()
+        ops_s = time.monotonic() - t0
+        unchanged = bool(torch.equal(x, keep))
+
+        ch = DeviceChannel(group, src_rank=0, dst_rank=1,
+                           shape=COLLECTIVE_CHANNEL_SHAPE,
+                           dtype=torch.bfloat16, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 50)
+        transfers = []
+        for _ in range(COLLECTIVE_CHANNEL_SENDS):
+            payload = torch.randn(COLLECTIVE_CHANNEL_SHAPE, generator=g,
+                                  device=dev).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if rank == 0:
+                ch.write(payload)
+                ok = True
+            else:
+                got = ch.read()
+                ok = got.device.type == "cuda" and bool(torch.equal(
+                    got, payload))
+            torch.cuda.synchronize()
+            transfers.append((ok, time.monotonic() - t0))
+        col.destroy_collective_group(group)
+        return dict(rank=rank, pid=os.getpid(), init_s=init_s, ops_s=ops_s,
+                    checks=checks, unchanged=unchanged, transfers=transfers,
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+class _NcclMember:
+    """A num_gpus=1 actor: reads the driver's tensor host-staged, and runs
+    a one-rank NCCL group (one card cannot hold two NCCL ranks)."""
+
+    def read(self, refs):
+        return _runtime_read_tensor(refs)
+
+    def nccl(self, group):
+        import torch
+
+        from ray_tpu_torch.util import collective as col
+        from ray_tpu_torch.util.collective.collective import _manager
+
+        dev = torch.device("cuda", 0)
+        t0 = time.monotonic()
+        col.init_collective_group(1, 0, backend="nccl", group_name=group)
+        init_s = time.monotonic() - t0
+        grp = _manager.get(group)
+        t = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+        w = t.clone()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        grp._backend_allreduce(w)    # through ProcessGroupNCCL itself
+        torch.cuda.synchronize()
+        allreduce_s = time.monotonic() - t0
+        out = dict(
+            pg=type(grp.pg).__name__, device=str(grp.device),
+            init_s=init_s, allreduce_s=allreduce_s,
+            equal=bool(torch.equal(w, t)), result_device=str(w.device),
+            # at world 1 the API hands back its input, as the JAX package's
+            world_one_is_input=col.allreduce(t, group_name=group) is t,
+            nccl_version=".".join(map(str, torch.cuda.nccl.version())))
+        col.destroy_collective_group(group)
+        return out
+
+
+def _collective_whoami():
+    return (os.environ.get("RT_NODE_ID"),
+            os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def _collective_train_fn(config):
+    """A numpy train fn: least squares by gradient steps, a report each."""
+    import numpy as np
+
+    from ray_tpu_torch import train
+
+    rng = np.random.default_rng(config["seed"])
+    a = rng.standard_normal((256, 16))
+    b = a @ rng.standard_normal(16)
+    w = np.zeros(16)
+    for step in range(1, config["steps"] + 1):
+        r = a @ w - b
+        w -= 0.5 * a.T @ r / len(b)
+        train.report({"step": step, "loss": float(r @ r / len(b)),
+                      "node": os.environ.get("RT_NODE_ID"),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def _h2d_copies(prof) -> int:
+    """Host-to-device memcpys a profile saw on the device."""
+    return sum(1 for e in prof.events() if "HtoD" in e.name)
+
+
+def _allocated_bytes(dev) -> int:
+    """Bytes this process has allocated on ``dev`` so far (a cumulative
+    counter: a get that copies onto the card allocates the copy)."""
+    import torch
+
+    return torch.cuda.memory_stats(dev).get("allocated_bytes.all.allocated",
+                                            0)
+
+
+def phase_collective(dev):
+    """The device object plane and the collective groups on the card (see
+    the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental.rdt import device_object_manager
+    from ray_tpu_torch.gpu.slice import slice_placement_group
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    t_phase = time.monotonic()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_collective_")
+    os.environ["RT_GPU_AUTODETECT"] = "1"
+    rt.init(num_cpus=COLLECTIVE_CPUS, system_config={
+        "object_store_memory_bytes": COLLECTIVE_STORE_BYTES})
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = global_context().session_dir
+    try:
+        # rdt: the driver's put and get of a 256 MiB bf16 CUDA tensor
+        g = torch.Generator(device=dev).manual_seed(SEED + 30)
+        x = torch.randn(COLLECTIVE_TENSOR_SHAPE, device=dev,
+                        generator=g).to(torch.bfloat16)
+        nbytes = x.numel() * x.element_size()
+        put_sums = _tensor_checksums(x)
+        stats = device_object_manager().stats
+        before = dict(stats)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = rt.put(x)
+        put_s = time.monotonic() - t0
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        alloc = _allocated_bytes(dev)
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            y = rt.get(ref, timeout=120)
+            torch.cuda.synchronize()
+            hit_s = time.monotonic() - t0
+        hit = dict(same=y is x, h2d=_h2d_copies(prof),
+                   allocated=_allocated_bytes(dev) - alloc,
+                   hits=stats["device_hits"] - before["device_hits"])
+        del y
+        x.add_(1)   # written after the put: a get must not return it
+        before = dict(stats)
+        alloc = _allocated_bytes(dev)
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            z = rt.get(ref, timeout=120)
+            torch.cuda.synchronize()
+            rebuild_s = time.monotonic() - t0
+        rebuild = dict(same=z is x, device=str(z.device), h2d=_h2d_copies(prof),
+                       allocated=_allocated_bytes(dev) - alloc,
+                       put_time_values=_tensor_checksums(z) == put_sums,
+                       rebuilds=stats["host_rebuilds"]
+                       - before["host_rebuilds"])
+        del z
+        nccl_actor = rt.remote(num_gpus=1, num_cpus=1)(_NcclMember).remote()
+        task = rt.get(nccl_actor.read.remote([ref]), timeout=300)
+        del x, ref
+        torch.cuda.empty_cache()
+        out["rdt"] = dict(
+            nbytes=nbytes, put_s=put_s, put_gbps=nbytes / put_s / 1e9,
+            hit_get_ms=1e3 * hit_s, hit=hit,
+            rebuild_get_s=rebuild_s, rebuild_gbps=nbytes / rebuild_s / 1e9,
+            rebuild=rebuild, task_get_s=task["get_s"],
+            task_gbps=nbytes / task["get_s"] / 1e9,
+            task_checksums_equal=task["checksums"] == put_sums,
+            task_device=task["device"])
+        print(f"collective: rdt get in the putting process "
+              f"{out['rdt']['hit_get_ms']:.4f} ms (the tensor itself, "
+              f"{hit['h2d']} host-to-device copies) against host-staged "
+              f"{rebuild_s:.3f} s after add_ ({out['rdt']['rebuild_gbps']:.2f} "
+              f"GB/s, {rebuild['h2d']} copies) and {task['get_s']:.3f} s in a "
+              f"num_gpus=1 actor ({out['rdt']['task_gbps']:.2f} GB/s); put "
+              f"{put_s:.3f} s ({out['rdt']['put_gbps']:.2f} GB/s)", flush=True)
+
+        # a one-rank NCCL group in the num_gpus=1 actor
+        out["nccl"] = rt.get(nccl_actor.nccl.remote("chip-nccl"), timeout=300)
+        rt.kill(nccl_actor)
+        print(f"collective: NCCL {out['nccl']['nccl_version']}: "
+              f"{out['nccl']['pg']} on {out['nccl']['device']}, made in "
+              f"{out['nccl']['init_s']:.3f} s, one all-reduce "
+              f"{1e3 * out['nccl']['allreduce_s']:.2f} ms", flush=True)
+
+        # gloo across two num_gpus=0.5 actors carrying CUDA tensors
+        member = rt.remote(num_gpus=0.5, num_cpus=1)(_GlooMember)
+        t0 = time.monotonic()
+        # (they wait for the NCCL actor's lease to return)
+        members = [member.remote(r) for r in range(COLLECTIVE_WORLD)]
+        gloo = rt.get([m.run.remote("chip-gloo") for m in members],
+                      timeout=300)
+        out["gloo"] = dict(wall_s=time.monotonic() - t0, ranks=gloo)
+        for m in members:
+            rt.kill(m)
+        ms = [1e3 * s for r in gloo if r["rank"] == 1
+              for _, s in r["transfers"]]
+        print(f"collective: gloo pair up and through every op in "
+              f"{out['gloo']['wall_s']:.2f} s (ops "
+              f"{max(r['ops_s'] for r in gloo):.3f} s); DeviceChannel "
+              f"{COLLECTIVE_CHANNEL_SHAPE} bf16 transfers "
+              f"{[round(v, 2) for v in ms]} ms", flush=True)
+
+        # gang placement: the card's own node as an NVLink domain
+        nodes = [n for n in rt.nodes() if n["state"] == "ALIVE"]
+        labels = nodes[0]["labels"]
+        pod, topo = labels["gpu-pod-type"], labels["gpu-topology"]
+        spg = slice_placement_group(pod, topology=topo)
+        ready = spg.ready(timeout=120)
+        dispatched = rt.get(spg.dispatch(_collective_whoami), timeout=120)
+        spg.remove()
+        result = TorchTrainer(
+            _collective_train_fn, train_loop_config={"seed": SEED, "steps": 5},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         topology=topo, accelerator_type=pod),
+            run_config=RunConfig(name="gang", storage_path=tmp)).fit()
+        hist = [m for m in result.metrics_history if "loss" in m]
+        out["gang"] = dict(
+            pod_type=pod, topology=topo, node=nodes[0]["node_id"],
+            domain=labels.get("gpu-domain-name"), ready=ready,
+            dispatched=dispatched, losses=[m["loss"] for m in hist],
+            train_nodes=sorted({m["node"] for m in hist}),
+            train_visible=sorted({str(m["visible"]) for m in hist}))
+        print(f"collective: gang {pod} {topo} on {out['gang']['domain']}: "
+              f"dispatch {dispatched}; trainer nodes "
+              f"{out['gang']['train_nodes']}", flush=True)
+    finally:
+        rt.shutdown()
+        os.environ.pop("RT_GPU_AUTODETECT", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.monotonic() - t_phase
+    print(json.dumps({"collective": out}), flush=True)
+    print(f"collective: phase {out['phase_s']:.1f} s", flush=True)
+
+    r = out["rdt"]
+    # the hit: no host-to-device memcpy under the profiler and not a byte
+    # allocated on the card; the rebuild is the control: it allocates its
+    # copy (the profiler sees its memcpy when it traces the device: the
+    # phase alone, yes; after the data phase's profiled step, no)
+    _check(r["hit"]["same"] and r["hit"]["hits"] == 1
+           and r["hit"]["h2d"] == 0 and r["hit"]["allocated"] == 0,
+           f"collective: the putting process's get was not the tensor "
+           f"itself with no copy: {r['hit']}")
+    _check(not r["rebuild"]["same"] and r["rebuild"]["rebuilds"] == 1
+           and r["rebuild"]["put_time_values"]
+           and r["rebuild"]["allocated"] >= r["nbytes"]
+           and r["rebuild"]["device"].startswith("cuda"),
+           f"collective: after add_ the get was not a host rebuild of the "
+           f"put-time values onto the card: {r['rebuild']}")
+    _check(r["task_checksums_equal"] and r["task_device"].startswith("cuda"),
+           f"collective: the num_gpus=1 actor read other values or off the "
+           f"card: {r['task_device']}")
+    n = out["nccl"]
+    _check(n["pg"] == "ProcessGroupNCCL" and n["equal"]
+           and n["result_device"].startswith("cuda")
+           and n["world_one_is_input"],
+           f"collective: the one-rank NCCL group: {n}")
+    for rank in out["gloo"]["ranks"]:
+        bad = {k: v for k, v in rank["checks"].items() if not v[0]}
+        _check(not bad and rank["unchanged"],
+               f"collective: gloo rank {rank['rank']}: ops off their numpy "
+               f"twin or off the card {bad}, input unchanged "
+               f"{rank['unchanged']}")
+        _check(len(rank["checks"]) == 12 + rank["rank"]
+               and all(ok for ok, _ in rank["transfers"]),
+               f"collective: gloo rank {rank['rank']}: checks "
+               f"{sorted(rank['checks'])}, transfers {rank['transfers']}")
+    gang = out["gang"]
+    _check(gang["ready"] and [d[0] for d in gang["dispatched"]]
+           == [gang["node"]] and gang["train_nodes"] == [gang["node"]],
+           f"collective: gang placement: {gang}")
+    _check(len(gang["losses"]) == 5
+           and gang["losses"][-1] < gang["losses"][0],
+           f"collective: the gang's train fn: losses {gang['losses']}")
+    _check(not left, f"collective: processes left after shutdown: {left}")
+    return out
+
+
 def _path_launches(report, key):
     """``key``'s launches in the trainer, stages, apps and data phases'
     runs (the train worker's steps, both pipelines' steps over their
@@ -5161,7 +5601,7 @@ def _timed(record, name, fn, *args):
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages", "apps", "data", "algos")
+          "trainer", "stages", "apps", "data", "algos", "collective")
 
 
 def main(argv=None) -> int:
@@ -5203,6 +5643,30 @@ def main(argv=None) -> int:
 
     report = {"card": card, "build_s": build_s, "build_info": binfo}
     phase_s = report["phase_s"] = {}
+    try:
+        _run_phases(phases, dev, card, report, phase_s)
+    finally:  # the seconds of the phases that ran, a failed one included
+        print(json.dumps({"phase_s": phase_s}), flush=True)
+    report["kernels"] = kernels_line(report)
+    if report["kernels"]:
+        print(json.dumps({"kernels": report["kernels"]}), flush=True)
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _run_phases(phases, dev, card, report, phase_s):
+    """Each phase of ``phases`` in order, its report under its name and its
+    seconds in ``phase_s``."""
+    import torch
+
     if "k1" in phases:
         report["k1"] = _timed(phase_s, "k1", phase_k1, dev)
     if "k23" in phases:
@@ -5254,8 +5718,7 @@ def main(argv=None) -> int:
                                    report.get("serve"))
     if "trainer" in phases:
         torch.cuda.empty_cache()
-        report["trainer"] = _timed(phase_s, "trainer", phase_trainer, dev,
-                                   report.get("train"))
+        report["trainer"] = _timed(phase_s, "trainer", phase_trainer, dev)
     if "stages" in phases:
         torch.cuda.empty_cache()
         report["stages"] = _timed(phase_s, "stages", phase_stages, dev)
@@ -5268,20 +5731,10 @@ def main(argv=None) -> int:
     if "algos" in phases:
         torch.cuda.empty_cache()
         report["algos"] = _timed(phase_s, "algos", phase_algos, dev, card)
-    print(json.dumps({"phase_s": phase_s}), flush=True)
-    report["kernels"] = kernels_line(report)
-    if report["kernels"]:
-        print(json.dumps({"kernels": report["kernels"]}), flush=True)
-
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    if "collective" in phases:
+        torch.cuda.empty_cache()
+        report["collective"] = _timed(phase_s, "collective",
+                                      phase_collective, dev)
 
 
 if __name__ == "__main__":

@@ -191,7 +191,7 @@ _flag("worker_lease_idle_s", 0.5, "Cached worker leases idle past this are retur
 _flag("lease_pool_max_idle", 16, "Max granted-but-idle leases cached per scheduling key before extras are returned immediately.")
 _flag("push_batch_max", 64, "Max task specs coalesced into one push_task_batch RPC to a leased worker (reference: normal_task_submitter.h:226 pipelined PushNormalTask — amortizes per-RPC framing and event-loop wakeups across queued same-shaped tasks).")
 _flag("push_feeders_per_key", 16, "Max concurrent lease-holding batch feeders per scheduling key; each feeder drains the key's ready queue onto one leased worker at a time.")
-_flag("device_object_transport", True, "The device object plane (reference: python/ray/experimental/rdt). Until the port's rdt lands (ROADMAP M10) CUDA tensors travel host-staged whatever its value: pickled through host memory by protocol 5 and rebuilt on the receiving worker's device, so a get returns an equal tensor, not the original.")
+_flag("device_object_transport", True, "The device object plane (experimental/rdt.py; reference: python/ray/experimental/rdt): a tensor put into the object plane stays registered in its producer, so a get in that process returns the original tensor (unchanged since the put) with no copy; other processes rebuild it from its host-staged bytes on their device. Off: every get rebuilds.")
 _flag("native_fastpath", True, "Use the C++ submission/completion engine (native/fastpath.cc: templated spec encoding, lock-free submission ring, batched frame build + reply splitting) on the control-plane hot path (reference: the _raylet.pyx submit_task seam). Falls back to the pure-Python path when the build fails or no compiler exists — set 0 to force the fallback.")
 _flag("fastpath_ring_slots", 65536, "Capacity of each lock-free submission ring (one ring per scheduling key); a full ring overflows gracefully onto the Python queue.")
 
@@ -284,9 +284,10 @@ _flag("testing_process_kill", "", "Process-kill fault: 'role:method:nth,...' —
 _flag("testing_preempt_notice", "", "Seeded preemption-notice fault: 'role:delay_ms:deadline_ms,...' — a node daemon whose chaos role matches receives a synthetic preemption notice delay_ms after startup and drains itself with the given deadline (models a GCE maintenance event / spot reclaim, deterministically).")
 _flag("testing_preempt_wave", "", "Correlated spot-reclaim wave fault: 'frac:window_ms:deadline_ms' — a seeded draw preempts frac of the SPOT fleet (labels.spot=true), each victim receiving its notice at a deterministic offset inside one window_ms burst with deadline_ms until hard death. Models the real-world correlated reclaim that single-notice faults cannot: an elastic gang shrinking below min_workers or a serve deployment losing every replica at once.")
 
-# --- GPU (the tpu_* flags' counterparts; tpu_topology waits for the device plane, ROADMAP M10) ---
+# --- GPU (the tpu_* flags' counterparts) ---
 _flag("gpus_per_host", 0, "Override detected CUDA devices per host (0 = autodetect). Counterpart of tpu_chips_per_host.")
 _flag("gpu_visible_devices", "", "Restrict the node's workers to these CUDA device ids (comma-separated), as CUDA_VISIBLE_DEVICES does: detection (RT_GPU_AUTODETECT) keeps only these, each of which it must have found, and every worker's CUDA_VISIBLE_DEVICES names them. Counterpart of tpu_visible_chips.")
+_flag("gpu_topology", "", "The NVLink domain this node belongs to, as 'HxG': H hosts of G CUDA devices each (e.g. '1x8' for one 8-GPU node, '18x4' for an NVL72 rack). Empty: the node is a domain of its own, '1x<its device count>'. Counterpart of tpu_topology; the domain's name and this host's index in it come from GPU_DOMAIN_NAME and GPU_WORKER_ID (TPU_NAME, TPU_WORKER_ID).")
 
 
 def get(name: str) -> Any:

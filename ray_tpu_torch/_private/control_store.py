@@ -2088,11 +2088,6 @@ class ControlStore:
         pg_id = PlacementGroupID(payload["pg_id"])
         bundles = [pb.Bundle.from_wire(b) for b in payload["bundles"]]
         strategy = payload.get("strategy", pb.PG_PACK)
-        if strategy == pb.PG_TOPOLOGY_STRICT_PACK:
-            raise NotImplementedError(
-                "TOPOLOGY_STRICT_PACK places by slice coordinates "
-                "(ray_tpu/tpu/slice.py); gang placement on an NVLink node "
-                "is not ported yet: ROADMAP Queue 1, M10")
         rec = PlacementGroupRecord(
             pg_id, bundles, strategy, payload.get("name", ""),
             label_selector=payload.get("labels") or {},
@@ -2113,6 +2108,8 @@ class ControlStore:
             and pb.labels_match(self.nodes[nid].labels, rec.label_selector)
         }
         placements: Dict[int, bytes] = {}
+        if rec.strategy == pb.PG_TOPOLOGY_STRICT_PACK:
+            return self._place_topology_strict(rec, avail)
         if rec.strategy in (pb.PG_STRICT_PACK,):
             for nid, a in avail.items():
                 need = ResourceSet()
@@ -2139,6 +2136,78 @@ class ControlStore:
             used_nodes.add(nid)
             avail[nid] = avail[nid] - b.resources
         return placements
+
+    def _place_topology_strict(
+        self, rec: PlacementGroupRecord, avail: Dict[bytes, ResourceSet]
+    ) -> Optional[Dict[int, bytes]]:
+        """Topology-aware gang placement (reference:
+        topology_bundle_scheduling_policy.h:89; the JAX package places on a
+        TPU slice's coordinates): one bundle per host, hosts chosen to
+        minimize the bounding box of their coordinates in one NVLink
+        domain, so (0,0),(0,1),(0,2) beats any set including a far-away
+        host. Greedy: for each
+        anchor host, grow by nearest manhattan distance; keep the set with
+        the smallest (max-distance, sum-distance) score. Bundle index i maps
+        to the i-th host in row-major coordinate order (gang rank ↔ physical
+        position)."""
+        n = len(rec.bundles)
+
+        def coord_of(nid: bytes):
+            raw = self.nodes[nid].labels.get(pb.GPU_COORD_LABEL)
+            if not raw:
+                return None
+            try:
+                return tuple(int(x) for x in raw.split(","))
+            except ValueError:
+                return None
+
+        # per-host feasibility: any bundle must fit any chosen host (one
+        # bundle lands per host; assignment is by rank, not by size).
+        # Candidates are grouped by NVLink domain (gpu-domain-name label):
+        # coordinates are only meaningful WITHIN one domain — two domains
+        # both have a host at (0,0), and a "tight" set spanning domains has
+        # no NVLink between them at all.
+        groups: Dict[str, list] = {}
+        for nid, a in avail.items():
+            coord = coord_of(nid)
+            if coord is None:
+                continue
+            if not all(b.resources.is_subset_of(a) for b in rec.bundles):
+                continue
+            domain = self.nodes[nid].labels.get("gpu-domain-name", "")
+            groups.setdefault(domain, []).append((nid, coord))
+        candidates = None
+        for members in groups.values():
+            if len(members) >= n:
+                candidates = (members if candidates is None
+                              else min(candidates, members, key=len))
+        if candidates is None:
+            return None
+
+        def dist(a, b):
+            return sum(abs(x - y) for x, y in zip(a, b))
+
+        best: Optional[tuple] = None
+        for anchor_nid, anchor in candidates:
+            ranked = sorted(
+                candidates, key=lambda cn: (dist(cn[1], anchor), cn[1])
+            )[:n]
+            # score the SET, not the anchor view: two hosts each at
+            # distance d from the anchor can be 2d apart, so the true
+            # extent is the pairwise maximum
+            dmax = max(
+                (dist(a, b) for _, a in ranked for _, b in ranked),
+                default=0,
+            )
+            dsum = sum(dist(c, anchor) for _, c in ranked)
+            score = (dmax, dsum)
+            if best is None or score < best[0]:
+                best = (score, ranked)
+        chosen = sorted(best[1], key=lambda cn: cn[1])  # row-major rank order
+        return {
+            b.index: chosen[i][0]
+            for i, b in enumerate(sorted(rec.bundles, key=lambda b: b.index))
+        }
 
     async def _schedule_pg(self, rec: PlacementGroupRecord):
         deadline = time.monotonic() + GLOBAL_CONFIG.get("placement_group_timeout_s")

@@ -1366,6 +1366,13 @@ class NodeDaemon:
                               runtime_env: Optional[dict] = None) -> dict:
         pg_id = bytes.fromhex(strategy.placement_group_id)
         pg = self.pg_prepared.get(pg_id)
+        if pg is None:
+            # the bundle lives on another node (a task submitted through
+            # this node's daemon): send the request where it is
+            peer = await self._pg_bundle_peer(pg_id, strategy.bundle_index)
+            if peer is not None:
+                return {"spillback": peer.address,
+                        "node_id": peer.node_id.hex()}
         if pg is None or pg["state"] != "committed":
             return {"error": "placement group not committed on this node", "retry": True}
         free: Dict[int, ResourceSet] = pg["free"]
@@ -1390,6 +1397,24 @@ class NodeDaemon:
                     "error": (f"resources {res.to_dict()} exceed the "
                               f"placement group bundle reservation")}
         return {"error": "insufficient placement group resources", "retry": True}
+
+    async def _pg_bundle_peer(self, pg_id: bytes, bundle_index: int):
+        """The peer node holding bundle ``bundle_index`` of the placement
+        group (any of its bundles for -1), from the control store's
+        placements; None while it is unplaced or here."""
+        try:
+            reply = await self.control.call("get_placement_group",
+                                            {"pg_id": pg_id}, timeout=10)
+        except Exception:  # noqa: BLE001 — retried by the caller
+            return None
+        placements = (reply.get("pg") or {}).get("placements") or {}
+        nodes = [v for k, v in placements.items()
+                 if bundle_index < 0 or int(k) == bundle_index]
+        for nid in nodes:
+            hexid = nid.hex() if isinstance(nid, bytes) else nid
+            if hexid != self.node_id.hex() and hexid in self.peer_nodes:
+                return self.peer_nodes[hexid]
+        return None
 
     def _release_lease(self, lease_id: bytes):
         lease = self.leases.pop(lease_id, None)

@@ -466,11 +466,16 @@ PG_PACK = "PACK"
 PG_SPREAD = "SPREAD"
 PG_STRICT_PACK = "STRICT_PACK"
 PG_STRICT_SPREAD = "STRICT_SPREAD"
-# The JAX package's ICI-topology gang placement (reference: raylet/
-# scheduling/policy/topology_bundle_scheduling_policy.h:89): the port's
-# control store refuses it until gang placement on an NVLink node lands
-# (ROADMAP M10).
+# Topology-aware gang placement (reference: raylet/scheduling/policy/
+# topology_bundle_scheduling_policy.h:89 TopologyStrictPackSchedulingPolicy):
+# one bundle per host, hosts chosen to form the tightest contiguous block of
+# one NVLink domain (labels carry per-host coordinates; see control_store
+# _place_bundles). Bundle index order follows row-major coordinate order so
+# gang ranks map onto adjacent hosts.
 PG_TOPOLOGY_STRICT_PACK = "TOPOLOGY_STRICT_PACK"
+# node label carrying the host's coordinates inside its NVLink domain,
+# "x,y[,z]" (the JAX package's TPU_COORD_LABEL, "rt.tpu.coord")
+GPU_COORD_LABEL = "rt.gpu.coord"
 
 PG_PENDING = "PENDING"
 PG_CREATED = "CREATED"

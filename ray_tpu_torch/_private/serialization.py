@@ -13,10 +13,13 @@ receiving side with ownership metadata (borrowing), matching the reference's
 ownership-based ref counting design (reference: src/ray/core_worker/reference_counter.h:44).
 
 torch tensors (the port's counterpart of the JAX package's jax.Array hook)
-travel through host memory: a tensor's bytes are one out-of-band buffer, and
-a CUDA tensor is rebuilt on the receiving process's current CUDA device, so
-a get returns an equal tensor, not the original. Keeping it on the device
-waits for the port's device object plane (ROADMAP M10).
+carry their bytes as one out-of-band buffer. While the
+``device_object_transport`` flag is on (the default) the device object plane
+(``experimental/rdt.py``) registers the live tensor too: a get in the
+process that put it returns the original tensor, unchanged since the put,
+with no copy; any other process, or a tensor written since, is rebuilt from
+the bytes (a CUDA tensor on the receiving process's current CUDA device).
+With the flag off every get rebuilds.
 """
 
 from __future__ import annotations
@@ -78,12 +81,28 @@ def _rebuild_tensor(buf, dtype: str, shape, device_type: str,
     return t.requires_grad_() if requires_grad else t
 
 
+def _reduce(obj):
+    """The tensor hook: the device object plane's while the
+    ``device_object_transport`` flag is on, ``_reduce_tensor`` otherwise."""
+    torch = sys.modules["torch"]
+    if type(obj) is not torch.Tensor:
+        return NotImplemented
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+    if GLOBAL_CONFIG.get("device_object_transport"):
+        from ray_tpu_torch.experimental.rdt import maybe_reduce_device_tensor
+
+        return maybe_reduce_device_tensor(obj)
+    return _reduce_tensor(obj)
+
+
 class _Pickler(pickle.Pickler):
-    """Protocol-5 pickler with the tensor hook (the JAX package's slot for
-    its device-array transport, reference: python/ray/experimental/rdt)."""
+    """Protocol-5 pickler with the device-tensor transport hook (reference:
+    python/ray/experimental/rdt — tensors move out-of-band; see
+    ray_tpu_torch/experimental/rdt.py)."""
 
     def reducer_override(self, obj):
-        return _reduce_tensor(obj)
+        return _reduce(obj)
 
 
 def _make_cloud_pickler_cls():
@@ -92,7 +111,7 @@ def _make_cloud_pickler_cls():
     class _CloudPickler(cloudpickle.Pickler):
         def reducer_override(self, obj):
             if "torch" in sys.modules:
-                r = _reduce_tensor(obj)
+                r = _reduce(obj)
                 if r is not NotImplemented:
                     return r
             return super().reducer_override(obj)

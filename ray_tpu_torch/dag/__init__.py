@@ -15,8 +15,8 @@ from issuing every stage's task eagerly with chained refs — executions
 pipeline across actors because each actor's ordered queue starts stage N of
 call i while downstream actors still run call i-1. A CUDA tensor crosses it
 host-staged; device-to-device movement belongs to torch.distributed inside
-a sharded step (and to ROADMAP Queue 1, M10's NCCL channel), not to the
-graph plane.
+a sharded step and to the collective groups' ``DeviceChannel``
+(``experimental/device_channel.py``), not to the graph plane.
 
 Pipeline-parallel TRAINING has two dedicated implementations on top of
 these primitives: ray_tpu_torch.parallel.pipeline (GPipe over the "pp"

@@ -4,8 +4,8 @@ Reference surface: python/ray/dag/collective_node.py:23 (_CollectiveOperation,
 CollectiveOutputNode :252) — NCCL allreduce between actor DAG nodes.
 
 The JAX package's redesign, copied: device-resident tensors reduce with
-the framework's collectives INSIDE a step (torch.distributed here; an NCCL
-group in the graph waits for ROADMAP Queue 1, M10); the graph-plane
+the framework's collectives INSIDE a step (torch.distributed here, or a
+collective group of ``ray_tpu_torch.util.collective``); the graph-plane
 collective here serves HOST values (numpy grads/metrics between pipeline
 stage actors) and rides the same preallocated shm channel plane as
 every other compiled edge — participant i streams its contribution to the

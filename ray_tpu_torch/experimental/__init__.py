@@ -1,4 +1,4 @@
-"""Experimental subsystems (reference: python/ray/experimental/). The port
-has the compiled DAG's channel plane (``channel.py``); JAX's device
-channel and rdt (``device_channel.py``, ``rdt.py``) wait for ROADMAP Queue
-1, M10."""
+"""Experimental subsystems (reference: python/ray/experimental/): the
+compiled DAG's channel plane (``channel.py``), the device object plane
+(``rdt.py``) and the device channel over a collective group
+(``device_channel.py``), each the port's copy of the JAX package's."""

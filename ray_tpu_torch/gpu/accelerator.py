@@ -16,12 +16,42 @@ accelerators/nvidia_gpu.py): TPU chips become CUDA devices.
 - One worker process owns the devices it was granted; a subset is written
   to ``CUDA_VISIBLE_DEVICES`` at spawn, and a worker granted every device
   of the node keeps the env it had.
+- An NVLink domain is what a TPU slice is to the JAX package: the hosts
+  whose devices share one NVLink fabric, which gang placement reserves
+  whole (``gpu/slice.py``). A node is a domain of its own (``1x<devices>``)
+  unless configuration names a shared one: the ``gpu_topology`` flag (or
+  ``GPU_TOPOLOGY``) gives ``HxG``, ``GPU_DOMAIN_NAME`` the domain and
+  ``GPU_WORKER_ID`` this host's index in it. Host 0 of a domain carries its
+  reservation token, as the JAX package's slice head does.
+
+The JAX package's names (``ray_tpu/tpu/accelerator.py``) and theirs here:
+
+=============================  ====================================
+JAX package (TPU)              port (GPU)
+=============================  ====================================
+``TPU`` resource               ``GPU`` resource
+``TPU-{pod_type}-head``        ``GPU-{pod_type}-head`` (host 0)
+``tpu-pod-type`` label         ``gpu-pod-type`` (``H100-8``)
+``tpu-slice-name`` label       ``gpu-domain-name``
+``tpu-worker-id`` label        ``gpu-worker-id``
+``tpu-topology`` label         ``gpu-topology`` (``HxG``)
+``rt.tpu.coord`` label         ``rt.gpu.coord`` (``0,<worker id>``)
+``tpu_topology`` flag          ``gpu_topology`` flag
+``TPU_NAME`` env               ``GPU_DOMAIN_NAME``
+``TPU_WORKER_ID`` env          ``GPU_WORKER_ID``
+``TPU_TOPOLOGY`` env           ``GPU_TOPOLOGY``
+=============================  ====================================
+
+``pod_type`` is ``{model}-{devices in the domain}``, the model the card
+name's first token with a digit (``NVIDIA H100 80GB HBM3`` -> ``H100``;
+``gpu`` when the name is unknown).
 """
 
 from __future__ import annotations
 
 import os
 import re
+import socket
 import subprocess
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -29,17 +59,54 @@ from typing import Dict, List, Optional, Tuple
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
 CUDA_VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
+GPU_DOMAIN_NAME_ENV = "GPU_DOMAIN_NAME"
+GPU_WORKER_ID_ENV = "GPU_WORKER_ID"
+GPU_TOPOLOGY_ENV = "GPU_TOPOLOGY"
 _PROC_GPUS = "/proc/driver/nvidia/gpus"
+
+
+def parse_topology(topology: str) -> Tuple[int, int]:
+    """``"HxG"`` as (hosts, devices a host)."""
+    m = re.fullmatch(r"\s*(\d+)\s*x\s*(\d+)\s*", topology or "")
+    if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        raise ValueError(
+            f"GPU topology {topology!r} is not 'HxG' (hosts x devices a host)")
+    return int(m.group(1)), int(m.group(2))
+
+
+def model_of(name: str) -> str:
+    """The card's model from its name: its first token with a digit,
+    before any '-' ("NVIDIA H100 80GB HBM3" -> "H100")."""
+    for tok in name.replace("-", " ").split():
+        if any(c.isdigit() for c in tok):
+            return tok
+    return "gpu"
 
 
 @dataclass
 class GpuInfo:
     device_ids: List[int]      # physical ids this node grants
     name: str = ""             # e.g. "NVIDIA H100 80GB HBM3"; "" if unknown
+    topology: str = ""         # "HxG" of the NVLink domain; "" = this node
+    domain_name: str = ""      # the domain's name; "" = this node's own
+    worker_id: int = 0         # this host's index in the domain
 
     @property
     def count(self) -> int:
         return len(self.device_ids)
+
+    @property
+    def domain_topology(self) -> str:
+        return self.topology or f"1x{self.count}"
+
+    @property
+    def pod_type(self) -> str:
+        hosts, per_host = parse_topology(self.domain_topology)
+        return f"{model_of(self.name)}-{hosts * per_host}"
+
+    @property
+    def head_resource_name(self) -> str:
+        return f"GPU-{self.pod_type}-head"
 
 
 def _nvidia_smi() -> List[Tuple[int, str, str]]:
@@ -132,18 +199,40 @@ class GpuAcceleratorManager:
             ids = named
         if not ids:
             return None
-        return GpuInfo(device_ids=ids, name=names.get(ids[0], ""))
+        topology = GLOBAL_CONFIG.get("gpu_topology") or os.environ.get(
+            GPU_TOPOLOGY_ENV, "")
+        if topology:
+            parse_topology(topology)
+        return GpuInfo(device_ids=ids, name=names.get(ids[0], ""),
+                       topology=topology,
+                       domain_name=os.environ.get(GPU_DOMAIN_NAME_ENV, ""),
+                       worker_id=int(os.environ.get(GPU_WORKER_ID_ENV, "0")))
 
     @staticmethod
     def node_resources_and_labels(info: Optional[GpuInfo] = None):
         """Resources + labels the node daemon should advertise."""
+        from ray_tpu_torch._private.protocol import GPU_COORD_LABEL
+
         info = info or GpuAcceleratorManager.detect()
         if info is None:
             return {}, {}
-        labels = {"gpu-count": str(info.count)}
+        resources = {"GPU": float(info.count)}
+        if info.worker_id == 0:
+            resources[info.head_resource_name] = 1.0
+        labels = {
+            "gpu-count": str(info.count),
+            "gpu-pod-type": info.pod_type,
+            # a domain of its own is named after its host and devices
+            "gpu-domain-name": info.domain_name or (
+                f"{info.pod_type}-{socket.gethostname()}-"
+                + "-".join(map(str, info.device_ids))),
+            "gpu-worker-id": str(info.worker_id),
+            "gpu-topology": info.domain_topology,
+            GPU_COORD_LABEL: f"0,{info.worker_id}",
+        }
         if info.name:
             labels["gpu-name"] = info.name
-        return {"GPU": float(info.count)}, labels
+        return resources, labels
 
     @staticmethod
     def set_visible_devices_env(env: Dict[str, str], device_ids: List[int],

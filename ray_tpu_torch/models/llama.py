@@ -89,21 +89,25 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    # A preset's keywords override its own fields too (``n_layers=8``: the
+    # preset's widths at a cut depth).
     @classmethod
     def llama2_7b(cls, **kw) -> "LlamaConfig":
-        return cls(dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
-                   ffn_dim=11008, **kw)
+        return cls(**{**dict(dim=4096, n_layers=32, n_heads=32,
+                             n_kv_heads=32, ffn_dim=11008), **kw})
 
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
-        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
-                   n_kv_heads=8, ffn_dim=14336, rope_theta=500000.0, **kw)
+        return cls(**{**dict(vocab_size=128256, dim=4096, n_layers=32,
+                             n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                             rope_theta=500000.0), **kw})
 
     @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
         """Test/CI-size config."""
-        return cls(vocab_size=512, dim=128, n_layers=2, n_heads=4,
-                   n_kv_heads=2, ffn_dim=256, max_seq_len=256, **kw)
+        return cls(**{**dict(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                             n_kv_heads=2, ffn_dim=256, max_seq_len=256),
+                      **kw})
 
     def num_params(self) -> int:
         hd = self.head_dim

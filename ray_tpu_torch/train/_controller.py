@@ -10,8 +10,8 @@ Redesigned driver-side (a plain object run by Trainer.fit) rather than as a
 detached actor: the framework's north-star path is a single driver owning
 its gang, and driver-failure isolation can be layered on by running fit()
 itself inside an actor. The port's copy of ``ray_tpu/train/_controller.py``:
-JAX's TPU-slice gangs (which its live resize excludes) would be gang
-placement within an NVLink node here, refused until ROADMAP Queue 1, M10.
+JAX's TPU-slice gangs are NVLink-domain gangs here (``gpu/slice.py``), and
+the live resize excludes them as JAX's excludes slices.
 
 Elastic extension: for ElasticScalingPolicy runs the controller adds a
 RESIZING state between RUNNING and the teardown path. A planned removal
@@ -42,8 +42,7 @@ from ray_tpu_torch.train._policies import (
     ScalingPolicy,
     usable_cluster_resources,
 )
-from ray_tpu_torch.train._worker_group import (NO_GANG_PLACEMENT,
-                                               WorkerGroup, WorkerStatus)
+from ray_tpu_torch.train._worker_group import WorkerGroup, WorkerStatus
 
 logger = logging.getLogger(__name__)
 
@@ -68,12 +67,11 @@ class TrainController:
         run_name: str,
         storage_path: str,
         checkpoint_manager: CheckpointManager,
+        use_gpu_domain: bool = False,
         topology: str = "",
         accelerator_type: str = "",
         poll_interval_s: float = 0.2,
     ):
-        if topology or accelerator_type:
-            raise NotImplementedError(NO_GANG_PLACEMENT)
         self.train_fn = train_fn
         self.train_config = train_config
         self.scaling_policy = scaling_policy
@@ -82,6 +80,9 @@ class TrainController:
         self.run_name = run_name
         self.storage_path = storage_path
         self.ckpt = checkpoint_manager
+        self.use_gpu_domain = use_gpu_domain
+        self.topology = topology
+        self.accelerator_type = accelerator_type
         self.poll_interval_s = poll_interval_s
         self.failure_count = 0
         # planned-removal rejoins (drain/preemption): checkpoint-then-rejoin,
@@ -154,10 +155,14 @@ class TrainController:
     # -- helpers --------------------------------------------------------
 
     def _elastic_live(self) -> bool:
-        # (JAX excludes TPU-slice gangs here; the port refuses gangs in
-        # __init__)
+        # domain gangs are excluded: a domain placement group fate-shares
+        # every bundle with every bundle's host, so an in-place resize
+        # would be undone the moment the drained host's bundle releases
+        # (and a joiner would land outside the NVLink domain) — a domain
+        # reshape goes through checkpoint-restore, as JAX's slices do
         return (isinstance(self.scaling_policy, ElasticScalingPolicy)
-                and bool(GLOBAL_CONFIG.get("train_live_resize")))
+                and bool(GLOBAL_CONFIG.get("train_live_resize"))
+                and not self.use_gpu_domain)
 
     def _nodes(self) -> List[dict]:
         try:
@@ -187,6 +192,9 @@ class TrainController:
             run_name=self.run_name,
             storage_path=self.storage_path,
             run_dir=self.ckpt.run_dir,
+            use_gpu_domain=self.use_gpu_domain,
+            topology=self.topology,
+            accelerator_type=self.accelerator_type,
             elastic=self._elastic_live(),
         )
         try:

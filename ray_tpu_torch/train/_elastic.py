@@ -7,9 +7,9 @@ the gang down: surviving workers pause at a step boundary, the dead ranks'
 state shards are re-distributed across the survivors through the object
 plane (a shard that keeps its holder never moves at all; lost/overflow
 shards travel host-staged: a CUDA tensor is copied to host memory by the
-put and rebuilt on the reader's device by the get — JAX's jax.Arrays stay
-on the device through rdt, which the port gains with ROADMAP Queue 1,
-M10), ranks and world_size are renumbered under a fresh
+put and rebuilt on the reader's device by the get, while a reader in the
+producing process gets the tensor itself through rdt, as JAX's
+jax.Arrays stay on the device), ranks and world_size are renumbered under a fresh
 generation id, and training resumes. When capacity returns (node-table
 "nodes" pubsub), the symmetric regrow spawns joiners that absorb shed
 shards and a slice of the data-iterator assignment.
@@ -418,8 +418,9 @@ class ElasticClient:
         # take long, and the actor thread's status()/commit() polls (the
         # controller's 30s RPC timeouts) must not block behind it. One
         # plane object per shard so absorption moves exactly the assigned
-        # shards, nothing else; the put stages a tensor's bytes on the
-        # host (no device plane until M10).
+        # shards, nothing else; tensors inside stay on the device for
+        # this process (rdt), the put stages host bytes for any
+        # cross-process consumer.
         published = {
             "manifest": sorted(shards, key=_sort_key),
             "shard_refs": {k: ray_tpu_torch.put(v) for k, v in shards.items()},

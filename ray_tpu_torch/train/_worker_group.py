@@ -11,10 +11,10 @@ fractional ``resources_per_worker`` shares the node's); rank 0's node
 becomes the torch.distributed rendezvous (``RT_TRAIN_COORDINATOR``, read by
 ``trainer.setup_torch_distributed``), injected as the reference's JaxConfig
 injects its coordinator (reference: python/ray/train/v2/jax/config.py:
-60-121). JAX's other placement, a whole TPU slice, would be gang placement
-within an NVLink node here: it raises ``NotImplementedError`` until ROADMAP
-Queue 1, M10. A worker's ``stop`` destroys its process group, so the
-process can join a gang again.
+60-121). JAX's other placement, a whole TPU slice, is a whole NVLink
+domain here (``gpu/slice.py``): with ``use_gpu_domain`` the workers fill
+the domain's per-host bundles, ranks in host order. A worker's ``stop``
+destroys its process group, so the process can join a gang again.
 
 Elastic extension: the group is GENERATION-aware. A live resize (see
 train/_elastic.py) renumbers ranks in place — surviving actors are reused,
@@ -42,11 +42,6 @@ from ray_tpu_torch.train import _context as ctx_mod
 from ray_tpu_torch.train import _elastic
 
 logger = logging.getLogger(__name__)
-
-NO_GANG_PLACEMENT = (
-    "gang placement within an NVLink node (JAX's TPU slices, "
-    "ray_tpu/tpu/slice.py) is not ported yet: ROADMAP Queue 1, M10")
-
 
 def destroy_process_group() -> bool:
     """``torch.distributed.destroy_process_group()`` where this process has
@@ -317,15 +312,16 @@ class WorkerGroup:
 
     def __init__(self, num_workers: int, resources_per_worker: Dict[str, float],
                  run_name: str, storage_path: str, run_dir: str,
-                 topology: str = "", accelerator_type: str = "",
-                 elastic: bool = False):
-        if topology or accelerator_type:
-            raise NotImplementedError(NO_GANG_PLACEMENT)
+                 use_gpu_domain: bool = False, topology: str = "",
+                 accelerator_type: str = "", elastic: bool = False):
         self.num_workers = num_workers
         self.resources_per_worker = dict(resources_per_worker)
         self.run_name = run_name
         self.storage_path = storage_path
         self.run_dir = run_dir
+        self.use_gpu_domain = use_gpu_domain
+        self.topology = topology
+        self.accelerator_type = accelerator_type
         self.elastic = elastic
         self.workers: List[Any] = []        # index == current rank
         self.worker_nodes: List[Optional[str]] = []
@@ -343,6 +339,7 @@ class WorkerGroup:
         self._stashed_reports: List[dict] = []
         self.sync_actor = None
         self._pg = None
+        self._slice_pg = None
         self._fn_bytes: Optional[bytes] = None
         self._config: Optional[dict] = None
 
@@ -394,7 +391,28 @@ class WorkerGroup:
                         namespace="_train",
                     ).remote()
 
-        if self.elastic:
+        bundle_of = list(range(self.num_workers))
+        if self.use_gpu_domain:
+            from ray_tpu_torch.gpu.slice import slice_placement_group
+
+            self._slice_pg = slice_placement_group(
+                pod_type=self.accelerator_type, num_slices=1,
+                topology=self.topology,
+            )
+            hosts = self._slice_pg.hosts_per_slice
+            if self.num_workers % hosts:
+                raise ValueError(
+                    f"{self.num_workers} workers do not fill the "
+                    f"{hosts} hosts of topology {self.topology!r} evenly")
+            if not self._slice_pg.ready(timeout=120):
+                raise TimeoutError(
+                    f"NVLink domain {self.accelerator_type} "
+                    f"({self.topology}) not reserved")
+            pg = self._slice_pg.placement_group
+            # ranks fill the hosts in order, num_workers / hosts each
+            bundle_of = [i * hosts // self.num_workers
+                         for i in range(self.num_workers)]
+        elif self.elastic:
             # no gang placement group: a PG fate-shares every bundle with
             # every bundle's node — one drained node would take the whole
             # (healthy) gang down with "placement group returned" exactly
@@ -414,7 +432,7 @@ class WorkerGroup:
         self._pg = pg
 
         self.workers = [
-            self._worker_options(pg=pg, bundle_index=i).remote(
+            self._worker_options(pg=pg, bundle_index=bundle_of[i]).remote(
                 rank=i, world_size=self.num_workers, local_rank=0,
                 node_rank=i, run_name=self.run_name,
                 storage_path=self.storage_path, run_dir=self.run_dir,
@@ -799,7 +817,12 @@ class WorkerGroup:
                 ray_tpu_torch.kill(self.sync_actor)
             except Exception:  # noqa: BLE001
                 pass
-        if self._pg is not None:
+        if self._slice_pg is not None:
+            try:
+                self._slice_pg.remove()
+            except Exception:  # noqa: BLE001
+                pass
+        elif self._pg is not None:
             try:
                 from ray_tpu_torch.util.placement_group import remove_placement_group
 

@@ -12,8 +12,9 @@ run without autograd and a backward that recomputes the stage under
 autograd (JAX's jitted ``stage_fwd`` / ``stage_bwd`` remat). Activations
 and gradients hand off through the shared-memory object plane as CPU
 tensors in the compute dtype (JAX's leave as numpy arrays; numpy has no
-bf16), host-staged as every tensor of the port's runtime is until ROADMAP
-Queue 1, M10. The driver submits ops in per-stage 1F1B order; because
+bf16), host-staged as every tensor that crosses processes in the port's
+runtime is (the device object plane keeps a tensor on the device only for
+a reader in the process that put it). The driver submits ops in per-stage 1F1B order; because
 actor queues execute strictly in submission order and argument refs gate
 delivery, the classic one-forward-one-backward interleave — bounding live
 residuals per stage at (S - stage) instead of M — emerges from ordinary

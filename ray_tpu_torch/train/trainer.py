@@ -11,8 +11,9 @@ a torch.distributed group: rank 0's host is the rendezvous (the address the
 worker group injects, as JaxConfig's `_setup_jax_distributed_environment`
 does for jax.distributed), and `setup_torch_distributed` joins it, NCCL
 where the worker sees CUDA. JAX's topology-aware placement of whole TPU
-slices would be gang placement within an NVLink node: `topology` and
-`accelerator_type` raise until ROADMAP Queue 1, M10.
+slices is the reservation of a whole NVLink domain here: with `use_gpu`,
+`topology` ("HxG") reserves a domain of the pod type `accelerator_type`
+names (a node's ``gpu-pod-type`` label, e.g. "H100-8"; ``gpu/slice.py``).
 """
 
 from __future__ import annotations
@@ -29,15 +30,16 @@ from ray_tpu_torch.train._policies import (
     FailurePolicy,
     FixedScalingPolicy,
 )
-from ray_tpu_torch.train._worker_group import (NO_GANG_PLACEMENT,
-                                               destroy_process_group)
+from ray_tpu_torch.train._worker_group import destroy_process_group
 
 
 @dataclass
 class ScalingConfig:
     """Reference: ray.train.ScalingConfig (+ the accelerator fields of
-    v2/jax/config.py: `use_gpu` for JAX's `use_tpu`; `topology` and
-    `accelerator_type` raise NotImplementedError until ROADMAP M10).
+    v2/jax/config.py: `use_gpu` for JAX's `use_tpu`; with it, `topology`
+    ("HxG": H hosts of G devices) reserves a whole NVLink domain of the pod
+    type `accelerator_type` names, as JAX's reserves a TPU slice; without
+    `topology`, as in JAX, no domain is reserved).
 
     Setting `elastic_min_workers` makes the run ELASTIC: the group sizes
     to current usable capacity within [elastic_min_workers, num_workers],
@@ -49,13 +51,13 @@ class ScalingConfig:
     num_workers: int = 1
     resources_per_worker: Dict[str, float] = field(default_factory=dict)
     use_gpu: bool = False
-    topology: str = ""  # gang placement: refused until ROADMAP M10
-    accelerator_type: str = ""  # likewise
+    topology: str = ""  # e.g. "1x8" — reserves a whole domain when use_gpu
+    accelerator_type: str = ""  # e.g. "H100-8"
     elastic_min_workers: Optional[int] = None  # set → elastic scaling
 
-    def __post_init__(self):
-        if self.topology or self.accelerator_type:
-            raise NotImplementedError(NO_GANG_PLACEMENT)
+    @property
+    def use_gpu_domain(self) -> bool:
+        return bool(self.use_gpu and self.topology)
 
     def policy(self):
         if self.elastic_min_workers is not None:
@@ -145,6 +147,9 @@ class DataParallelTrainer:
             run_name=run_name,
             storage_path=storage,
             checkpoint_manager=manager,
+            use_gpu_domain=self.scaling_config.use_gpu_domain,
+            topology=self.scaling_config.topology,
+            accelerator_type=self.scaling_config.accelerator_type,
         )
 
     def fit(self) -> TrainResult:

@@ -738,7 +738,12 @@ def import_check(root):
         "'ray_tpu_torch.util.actor_pool', 'ray_tpu_torch.util.queue', "
         "'ray_tpu_torch.util.multiprocessing', "
         "'ray_tpu_torch.util.joblib', "
-        "'ray_tpu_torch.runtime_env'} <= set(names), names\n"
+        "'ray_tpu_torch.runtime_env', "
+        "'ray_tpu_torch.util.collective', "
+        "'ray_tpu_torch.util.collective.nccl_group', "
+        "'ray_tpu_torch.experimental.rdt', "
+        "'ray_tpu_torch.experimental.device_channel', "
+        "'ray_tpu_torch.gpu.slice'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1570,3 +1575,275 @@ def rl_names():
 
     return list(tr.__all__), sorted(n for n in dir(tr)
                                     if not n.startswith("_"))
+
+
+# -- util/collective, experimental/rdt, experimental/device_channel ----------
+
+_COL_MEMBERS = []
+
+
+def col_start(num_cpus, world):
+    """A cluster of the port in this process and ``world`` member actors
+    (``_col_cases.Member``, shipped by value)."""
+    import cloudpickle
+
+    import _col_cases
+    import ray_tpu_torch as rt
+
+    cloudpickle.register_pickle_by_value(_col_cases)
+    rt.init(num_cpus=num_cpus)
+    atexit.register(rt.shutdown)
+    member = rt.remote(num_cpus=1)(_col_cases.Member)
+    _COL_MEMBERS[:] = [member.remote(r, "ray_tpu_torch") for r in range(world)]
+    rt.get([m.call.remote(cloudpickle.dumps(lambda r, p: r))
+            for m in _COL_MEMBERS], timeout=120)
+
+
+def col_run(case, world, *args):
+    """``_col_cases.<case>(rank, "ray_tpu_torch", *args)`` on the first
+    ``world`` members at once: the results in rank order."""
+    import cloudpickle
+
+    import _col_cases
+    import ray_tpu_torch as rt
+
+    fn = cloudpickle.dumps(getattr(_col_cases, case))
+    return rt.get([m.call.remote(fn, *args) for m in _COL_MEMBERS[:world]],
+                  timeout=120)
+
+
+def col_world_one(x):
+    """``_col_cases.world_one`` in this process (a gloo group of one)."""
+    import _col_cases
+
+    return _col_cases.world_one(0, "ray_tpu_torch", "gloo", "world-one", x)
+
+
+def col_groups_beside_default(storage, tag):
+    """``_col_cases.port_groups_beside_default`` as a 2-worker TorchTrainer
+    on this process's cluster: the reports."""
+    import _col_cases
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    result = TorchTrainer(
+        _col_cases.port_groups_beside_default,
+        train_loop_config={"tag": tag},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(name=tag, storage_path=storage)).fit()
+    return result.metrics_history
+
+
+def rdt_cases():
+    """``test_rdt.py``'s in-process cases on the port: {name: facts}."""
+    import gc
+
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.experimental.rdt import device_object_manager
+
+    def roundtrip(v):
+        return ser.deserialize(memoryview(ser.serialize(v).to_bytes()))
+
+    out = {}
+    x = torch.arange(1024.0) * 2.0
+    xb = x.to(torch.bfloat16)
+    out["same_process_is"] = (roundtrip(x) is x, roundtrip(xb) is xb)
+
+    y = torch.linspace(0.0, 1.0, 333, dtype=torch.bfloat16)
+    expect = y.clone()
+    blob = ser.serialize(y).to_bytes()
+    del y
+    gc.collect()
+    back = ser.deserialize(memoryview(blob))
+    out["dropped_rebuild"] = (type(back).__name__, str(back.dtype),
+                              bool(torch.equal(back, expect)))
+
+    tree = {"w": torch.ones(4, 4), "meta": "adam", "step": 7}
+    t = roundtrip(tree)
+    out["pytree"] = (t["meta"], t["step"], t["w"] is tree["w"])
+
+    GLOBAL_CONFIG.apply_system_config({"device_object_transport": False})
+    try:
+        z = torch.arange(16.0)
+        n_before = len(device_object_manager())
+        blob = ser.serialize(z).to_bytes()
+        n_after = len(device_object_manager())
+        zb = ser.deserialize(memoryview(blob))
+        out["flag_off"] = (n_after == n_before, zb is z,
+                           bool(torch.equal(zb, z)))
+    finally:
+        GLOBAL_CONFIG.apply_system_config({"device_object_transport": True})
+    return out
+
+
+def rdt_changed_since_put():
+    """A tensor written in place after the put (AdamW's way), one whose
+    storage was freed (resized to 0, ZeRO's way), one whose data was
+    swapped, and a view written through its base: each get a host rebuild
+    with the put-time values, never the written tensor; an untouched one a
+    device hit. {case: (hit, equal to the put-time values, stats delta)}."""
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch.experimental.rdt import device_object_manager
+
+    stats = device_object_manager().stats
+    base = torch.arange(12.0).reshape(3, 4)
+    param = torch.nn.Parameter(torch.ones(4))
+    param.grad = torch.ones(4)
+
+    def sgd_step(t):  # t is param.detach(), as a state_dict holds it
+        torch.optim.SGD([param], lr=0.5).step()
+
+    cases = {
+        "untouched": (torch.arange(8.0), lambda t: None),
+        "add_": (torch.arange(8.0), lambda t: t.add_(1)),
+        "optimizer": (param.detach(), sgd_step),
+        # a CPU tensor's put maps its storage into numpy, which makes the
+        # storage non-resizable: free it by setting it empty (ZeRO-3's
+        # ``p.data = torch.empty(0)`` moves the tensor to a storage of 0 bytes)
+        "storage_freed": (torch.arange(8.0), lambda t: t.set_()),
+        "data_swapped": (torch.arange(8.0),
+                         lambda t: setattr(t, "data", torch.zeros(8))),
+        "view_of_base": (base[1], lambda t: base.add_(100)),
+    }
+    out = {}
+    for name, (t, change) in cases.items():
+        blob = ser.serialize(t).to_bytes()
+        put_time = t.clone()
+        change(t)
+        before = dict(stats)
+        got = ser.deserialize(memoryview(blob))
+        delta = {k: stats[k] - before[k] for k in stats}
+        out[name] = (got is t, bool(torch.equal(got, put_time)), delta)
+    return out
+
+
+def rdt_cluster():
+    """``test_rdt.py::test_through_object_plane_tasks`` on a cluster of the
+    port: a task's tensor read by another task (rebuilt there) and by the
+    driver; a large tensor the driver put read back by the driver (the
+    tensor itself), and after ``add_`` the put-time values."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental.rdt import device_object_manager
+
+    @rt.remote
+    def make():
+        import torch as th
+
+        return th.full((64, 64), 3.0)
+
+    @rt.remote
+    def consume(a):
+        import torch as th
+
+        from ray_tpu_torch.experimental.rdt import device_object_manager as m
+
+        return (type(a) is th.Tensor, float(a.sum()),
+                m().stats["host_rebuilds"] >= 1)
+
+    rt.init(num_cpus=2)
+    try:
+        ref = make.remote()
+        seen = rt.get(consume.remote(ref), timeout=60)
+        val = rt.get(ref, timeout=60)
+        local = torch.arange(100_000, dtype=torch.float32)  # > inline max
+        r2 = rt.put(local)
+        stats = device_object_manager().stats
+        hits = stats["device_hits"]
+        same = rt.get(r2, timeout=60) is local
+        hit = stats["device_hits"] - hits
+        local.add_(1)
+        again = rt.get(r2, timeout=60)
+        return {"task": seen, "driver": (type(val).__name__, float(val[0, 0])),
+                "put_get_is": same, "hit": hit,
+                "after_add": (again is local,
+                              bool(torch.equal(again, local - 1)))}
+    finally:
+        rt.shutdown()
+
+
+def rdt_stats_program():
+    """``test_stats_count_as_jax_does``'s program on the port: the counters'
+    deltas."""
+    import gc
+
+    from ray_tpu_torch._private import serialization as ser
+    from ray_tpu_torch.experimental.rdt import device_object_manager
+
+    stats = device_object_manager().stats
+    before = dict(stats)
+    x = torch.arange(64.0)
+    blob = ser.serialize(x).to_bytes()
+    assert ser.deserialize(memoryview(blob)) is x
+    del x
+    gc.collect()
+    assert torch.equal(ser.deserialize(memoryview(blob)),
+                       torch.arange(64.0))
+    return {k: stats[k] - before[k] for k in stats}
+
+
+def col_backend_path(world):
+    """``world`` ranks of a gloo group as threads of this process, outside
+    any cluster (``RT_COLLECTIVE_COORD`` names the store), so every op
+    takes the process group's own collectives (no shared-memory path):
+    {rank: {op: equal to its numpy twin}} on integer-valued data, numpy
+    and CPU tensors alike."""
+    import functools
+    import socket
+    import threading
+
+    from ray_tpu_torch.util.collective.nccl_group import NcclCollectiveGroup
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ["RT_COLLECTIVE_COORD"] = f"127.0.0.1:{port}"
+    xs = [np.random.default_rng(70 + r).integers(-3, 4, (world, 6)).astype(
+        np.float32) for r in range(world)]
+    npop = {"sum": np.add, "product": np.multiply, "max": np.maximum,
+            "min": np.minimum}
+    out, errors = {}, []
+
+    def rank_main(rank):
+        try:
+            grp = NcclCollectiveGroup(world, rank, "threads", "gloo")
+            got = {}
+            for kind, x in (("numpy", xs[rank]),
+                            ("tensor", torch.from_numpy(xs[rank].copy()))):
+                def eq(v, want):
+                    v = v.numpy() if isinstance(v, torch.Tensor) else v
+                    return bool(np.array_equal(v, want)) and (
+                        isinstance(v, np.ndarray))
+                for op in npop:
+                    got[f"{kind}_allreduce_{op}"] = eq(
+                        grp.allreduce(x[0], op), functools.reduce(
+                            npop[op], [a[0] for a in xs]))
+                    got[f"{kind}_reducescatter_{op}"] = eq(
+                        grp.reducescatter(x, op), functools.reduce(
+                            npop[op], [a[rank] for a in xs]))
+                got[f"{kind}_broadcast"] = eq(grp.broadcast(x[1], 1),
+                                              xs[1][1])
+                got[f"{kind}_allgather"] = eq(grp.allgather(x[1]),
+                                              np.stack([a[1] for a in xs]))
+                got[f"{kind}_permute"] = eq(
+                    grp.permute(x[0], [(r, (r + 1) % world)
+                                       for r in range(world)]),
+                    xs[(rank - 1) % world][0])
+                got[f"{kind}_unchanged"] = eq(x, xs[rank])
+            grp.barrier()
+            grp.destroy()
+            out[rank] = got
+        except Exception as e:  # reported to the caller
+            errors.append(f"rank {rank}: {e!r}")
+
+    try:
+        threads = [threading.Thread(target=rank_main, args=(r,))
+                   for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        del os.environ["RT_COLLECTIVE_COORD"]
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return out

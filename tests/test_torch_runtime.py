@@ -510,8 +510,13 @@ def test_gpu_detection_flags(monkeypatch):
     GLOBAL_CONFIG.apply_system_config({"gpus_per_host": 2})
     info = acc.GpuAcceleratorManager.detect(allow_cuda_probe=False)
     assert info.device_ids == [0, 1]
+    import socket
+
     assert acc.GpuAcceleratorManager.node_resources_and_labels(info) == (
-        {"GPU": 2.0}, {"gpu-count": "2"})
+        {"GPU": 2.0, "GPU-gpu-2-head": 1.0},
+        {"gpu-count": "2", "gpu-pod-type": "gpu-2",
+         "gpu-domain-name": f"gpu-2-{socket.gethostname()}-0-1",
+         "gpu-worker-id": "0", "gpu-topology": "1x2", "rt.gpu.coord": "0,0"})
     GLOBAL_CONFIG.apply_system_config({"gpu_visible_devices": "1"})
     assert acc.GpuAcceleratorManager.detect(
         allow_cuda_probe=False).device_ids == [1]

@@ -5,7 +5,8 @@ Its controller and worker group import no torch, so these run in the
 pytest worker; the train fns import torch in the port's worker processes.
 Added: ``setup_torch_distributed`` at world 2 over gloo (what JAX's skipped
 ``test_jax_distributed_two_process_mesh`` means), GPU leases of a
-``use_gpu`` run, and the refusal of gang placement (ROADMAP M10)."""
+``use_gpu`` run, and which configs reserve an NVLink domain (gang placement
+itself runs in ``test_torch_slice.py``)."""
 
 import os
 import subprocess
@@ -323,9 +324,21 @@ def test_use_gpu_workers_get_disjoint_devices(ray_init, tmp_path):
 
 
 @pytest.mark.parametrize("field", ["topology", "accelerator_type"])
-def test_gang_placement_is_refused(field):
-    with pytest.raises(NotImplementedError, match="M10"):
-        ScalingConfig(num_workers=2, use_gpu=True, **{field: "2x4"})
+def test_gang_placement_is_refused(field, tmp_path):
+    """Gang placement is no longer refused: as in JAX (``use_tpu_slices =
+    use_tpu and topology``), ``topology`` with ``use_gpu`` reserves a whole
+    NVLink domain, through the controller into the worker group, while
+    ``accelerator_type`` alone reserves none."""
+    value = {"topology": "2x4", "accelerator_type": "H100-8"}[field]
+    scaling = ScalingConfig(num_workers=2, use_gpu=True, **{field: value})
+    assert scaling.use_gpu_domain == (field == "topology")
+    controller = TorchTrainer(
+        lambda: None, scaling_config=scaling,
+        run_config=_run_cfg(tmp_path, "gang"))._controller()
+    assert controller.use_gpu_domain == (field == "topology")
+    assert (controller.topology, controller.accelerator_type) == (
+        (value, "") if field == "topology" else ("", value))
+    assert not controller._elastic_live()
 
 
 def test_driver_of_a_training_run_imports_no_torch(tmp_path):
