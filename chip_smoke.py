@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs twenty-two phases and fails (exit 1) if any check fails:
+runs twenty-three phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -293,6 +293,42 @@ runs twenty-two phases and fails (exit 1) if any check fails:
             accelerator_type=)`` and a numpy train fn. No process of the
             cluster is left after ``shutdown()``.
 
+* ops     — the preemption watcher, the profiler, tune and job submission
+            (``gpu/preemption.py``, ``gpu/profiler.py``, ``tune/``,
+            ``job_submission/``) on one ``cluster_utils.Cluster`` of two
+            daemons on this host, each advertising the card as {"GPU": 1},
+            the second labelled spot. The model is the trainer phase's (the
+            flagship at 4 of 16 layers, "flash", remat "dots", its seed,
+            batch and lr), held to the same steps in this process
+            (TOL_TRAINER_LOSS). profile: a num_gpus=1 actor on the spot
+            node takes one step while ``capture_on_node(..., port=)``
+            records it through the actor's ``init_profiler`` listener; the
+            chrome trace's K1/K2/K3 kernel events equal the actor's launch
+            counters (8/4/4), their summed device ms printed. jobs (beside
+            the profile, while this process computes the references): a
+            ``resources={"GPU": 1}`` job whose entrypoint (``chip_smoke.py
+            --ops-job``) joins the cluster and takes one step SUCCEEDS, its
+            logs holding the card's name and the in-process loss; then a
+            looping GPU job is stopped (STOPPED) and the GPU it held
+            returns. tune: ``Tuner`` with ``ASHAScheduler`` (max_t 6, grace
+            1, factor 2) over 3 learning rates, each trial on half of the
+            head's card (``trial_resources={"GPU": 0.5}`` and the head's
+            ``ops_head`` resource), two at a time, the worst last: every
+            trial's losses the in-process ones, ASHA stops at least one,
+            ``get_best_result`` the lowest loss. preempt (beside tune): a
+            ``TorchTrainer`` whose one worker holds half a card starts on
+            the spot node (the first trials hold the head's card) and
+            checkpoints every 2 steps; after step 2's checkpoint a
+            ``testing_preempt_wave`` sent through ``chaos_set`` reaches the
+            spot daemon's watcher, which publishes the notice and drains
+            the node (reason preemption, 6 s deadline); the controller
+            counts one planned rejoin and no failure, and steps 3-6 run on
+            the head's card from the step-2 checkpoint, beside the last
+            trial, every loss the uninterrupted run's. Printed: each
+            stage's seconds, notice to PREEMPTING, DRAINING, DEAD and the
+            resumed step. No process of the cluster is left after
+            shutdown.
+
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -307,6 +343,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
@@ -5500,21 +5537,640 @@ def phase_collective(dev):
     return out
 
 
+OPS_CPUS = 4               # each of the two daemons
+# the flagship at the trainer phase's depth cut (4 of 16 layers, full
+# width): K1/K2/K3 8/4/4 a step
+OPS_CFG = TRAINER_CFG
+OPS_LRS = (TRAIN_LR, 3e-4, 1e-3)   # the tune trials' learning rates
+OPS_TUNE_STEPS = 6         # ASHA's max_t: rungs at steps 1, 2 and 4
+OPS_TUNE_PAUSE_S = 0.3     # after each report: time for a stop to land
+OPS_PREEMPT_STEPS = 6
+OPS_CKPT_EVERY = 2         # the preempted run checkpoints every 2 steps
+OPS_NOTICE_AFTER = 2       # its first attempt is noticed after this step
+OPS_NOTICE_DEADLINE_MS = 6000
+OPS_WAIT_PREEMPT_S = 120   # the first attempt's wait to be preempted
+OPS_CAPTURE_S = 3.0
+# a custom resource only the head advertises: the tune trials ask for half
+# of it beside half a GPU, so they run on the head's card
+OPS_HEAD_RESOURCE = "ops_head"
+OPS_TRAINER_GPU = 0.5      # the preempted trainer's worker: half a card
+# each kernel's symbol in the trace (K1: hopper_attn.cuh's attn_fwd, which
+# flash_fwd.cu launches; K4, not on this path, is its CARRY instance)
+OPS_KERNEL_SYMBOLS = (("k1", "attn_fwd"), ("k2", "flash_bwd_dq_kernel"),
+                      ("k3", "flash_bwd_dkv_kernel"))
+
+
+def _ops_counts():
+    """The K1/K2/K3 launch counters of this process, then zeroed."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    out = dict(k1=fa.flash_fwd_launches, k2=fa.flash_bwd_dq_launches,
+               k3=fa.flash_bwd_dkv_launches)
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    return out
+
+
+def _ops_model(cfg, lr, remat, seed, dev):
+    """The flagship's ``make_train_step`` at ``cfg`` ("flash") on ``dev``:
+    (state from ``seed``, train_step, data device)."""
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+
+    init_state, shard_state, train_step, data_dev = make_train_step(
+        LlamaConfig(**cfg, attention_impl="flash"), learning_rate=lr,
+        remat=remat, loss_chunk=0, device=dev)
+    return shard_state(init_state(seed)), train_step, data_dev
+
+
+def _ops_reference(dev):
+    """Each OPS_LRS learning rate's losses in this process, from the seed on
+    the train batch: OPS_PREEMPT_STEPS steps at TRAIN_LR, OPS_TUNE_STEPS at
+    the others."""
+    import torch
+
+    out = {}
+    for lr in OPS_LRS:
+        state, train_step, data_dev = _ops_model(OPS_CFG, lr, TRAIN_REMAT,
+                                                 SEED, dev)
+        tokens = _train_tokens(data_dev)
+        steps = OPS_PREEMPT_STEPS if lr == TRAIN_LR else OPS_TUNE_STEPS
+        losses = []
+        for _ in range(max(steps, OPS_TUNE_STEPS)):
+            state, loss = train_step(state, tokens)
+            losses.append(float(loss))
+        out[lr] = losses
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
+class _OpsProfiled:
+    """A num_gpus=1 actor holding the flagship after one warm-up step: it
+    serves ``gpu/profiler.py`` captures of its own process, and takes one
+    step once a capture is recording."""
+
+    def __init__(self, config):
+        import torch
+
+        self.dev = torch.device("cuda", 0)
+        self.state, self.train_step, data_dev = _ops_model(
+            config["cfg"], config["lr"], config["remat"], config["seed"],
+            self.dev)
+        self.tokens = torch.from_numpy(config["tokens"]).to(data_dev)
+        self.state, _ = self.train_step(self.state, self.tokens)
+        torch.cuda.synchronize()
+
+    def listen(self):
+        from ray_tpu_torch.gpu import profiler
+
+        return profiler.init_profiler(0), os.environ["RT_NODE_ID"], os.getpid()
+
+    def step_when_profiled(self, timeout):
+        import torch
+
+        from ray_tpu_torch.gpu import profiler
+
+        deadline = time.monotonic() + timeout
+        while not profiler.capturing():
+            if time.monotonic() > deadline:
+                raise TimeoutError("no capture began")
+            time.sleep(0.01)
+        _ops_counts()
+        t = time.monotonic()
+        self.state, loss = self.train_step(self.state, self.tokens)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        return dict(loss=loss, ms=1e3 * (time.monotonic() - t),
+                    launches=_ops_counts(), capturing=profiler.capturing())
+
+
+def _ops_trial(config):
+    """The tune trainable, in a trial actor on half of a card: the flagship
+    from the seed at ``config["lr"]``, a report after each step."""
+    import torch
+
+    from ray_tpu_torch import tune
+
+    state, train_step, data_dev = _ops_model(
+        config["cfg"], config["lr"], config["remat"], config["seed"],
+        torch.device("cuda", 0))
+    tokens = torch.from_numpy(config["tokens"]).to(data_dev)
+    _ops_counts()
+    for _ in range(config["steps"]):
+        state, loss = train_step(state, tokens)
+        tune.report({"loss": float(loss), "launches": _ops_counts(),
+                     "pid": os.getpid(),
+                     "device": torch.cuda.get_device_name(0)})
+        time.sleep(config["pause_s"])
+
+
+def _ops_job_main(lr):
+    """The GPU job's entrypoint (``chip_smoke.py --ops-job LR``): joins the
+    cluster at RT_ADDRESS, takes one flagship step on the card and prints
+    the card's name and the loss."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    import ray_tpu_torch as rt
+
+    rt.init(address=os.environ["RT_ADDRESS"])
+    try:
+        dev = torch.device("cuda", 0)
+        state, train_step, data_dev = _ops_model(OPS_CFG, lr, TRAIN_REMAT,
+                                                 SEED, dev)
+        _ops_counts()
+        _, loss = train_step(state, _train_tokens(data_dev))
+        print(json.dumps({"ops_job": dict(
+            device_name=torch.cuda.get_device_name(dev), loss=float(loss),
+            launches=_ops_counts(), gpus=rt.cluster_resources().get("GPU"))}),
+            flush=True)
+    finally:
+        rt.shutdown()
+    return 0
+
+
+def _ops_preempt_fn(config):
+    """The preempted trainer's train fn, in a num_gpus=1 train worker: the
+    flagship from the seed, restored from the run's latest checkpoint, a
+    report after each step, the train state every ``ckpt_every``. The first
+    attempt, once step ``notice_after``'s checkpoint is final and the
+    controller holds every report, marks it and waits for its node's
+    drain to end it."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    dev = train.setup_torch_distributed()
+    ctx = train.get_context()
+    (params, opt), train_step, data_dev = _ops_model(
+        config["cfg"], config["lr"], config["remat"], config["seed"], dev)
+    start, restored = 1, None
+    ckpt = ctx.get_checkpoint()
+    if ckpt is not None:
+        tree = ckpt.load_state(train.train_state_tree(params, opt))
+        train.load_train_state(tree, params, opt)
+        start, restored = ckpt.step + 1, ckpt.step
+    tokens = torch.from_numpy(config["tokens"]).to(data_dev)
+    _ops_counts()
+    for step in range(start, config["steps"] + 1):
+        (params, opt), loss = train_step((params, opt), tokens)
+        metrics = dict(step=step, loss=float(loss), restored=restored,
+                       node=os.environ.get("RT_NODE_ID"),
+                       device=torch.cuda.get_device_name(dev),
+                       launches=_ops_counts(), t_step_end=time.time())
+        if step % config["ckpt_every"] == 0:
+            train.report(metrics, checkpoint_state=train.train_state_tree(
+                params, opt))
+        else:
+            train.report(metrics)
+        if step == config["notice_after"] and restored is None:
+            final = os.path.join(config["run_dir"], "checkpoint_%09d" % step)
+            deadline = time.time() + 300
+            while time.time() < deadline and not (
+                    os.path.isdir(final) and ctx.report_queue.empty()):
+                time.sleep(0.05)
+            with open(config["marker"], "w") as f:
+                f.write(os.environ.get("RT_NODE_ID", ""))
+            time.sleep(config["wait_s"])
+            raise RuntimeError(
+                f"no preemption ended this worker in {config['wait_s']} s")
+
+
+def _ops_trace_kernels(files):
+    """K1/K2/K3 events in the chrome traces ``files``: each kernel's count
+    and summed device ms."""
+    counts = {k: 0 for k, _ in OPS_KERNEL_SYMBOLS}
+    ms = {k: 0.0 for k, _ in OPS_KERNEL_SYMBOLS}
+    kernels = 0
+    for path in files:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            kernels += 1
+            for key, sym in OPS_KERNEL_SYMBOLS:
+                if sym in e.get("name", ""):
+                    counts[key] += 1
+                    ms[key] += e.get("dur", 0.0) / 1e3
+    return dict(counts=counts, ms=ms, kernels=kernels)
+
+
+def _ops_nodes(cw):
+    reply = cw.run_sync(cw.control.call("get_all_nodes", {}), 10)
+    return {n["node_id"].hex(): n for n in reply["nodes"]}
+
+
+def _ops_profile(rt, out, actor, card):
+    """profile: ``capture_on_node`` of a num_gpus=1 actor's process through
+    its ``init_profiler`` listener while the actor takes one step."""
+    from ray_tpu_torch.gpu.profiler import capture_on_node
+
+    try:
+        port, node, pid = rt.get(actor.listen.remote(), timeout=300)
+        step = actor.step_when_profiled.remote(OPS_CAPTURE_S)
+        t = time.monotonic()
+        files = capture_on_node(node, None, duration_s=OPS_CAPTURE_S,
+                                port=port)
+        capture_s = time.monotonic() - t
+        stepped = rt.get(step, timeout=60)
+    finally:
+        rt.kill(actor)
+    traced = _ops_trace_kernels(files)
+    for path in files:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    out["profile"] = dict(files=files, pid=pid, node=node,
+                          capture_s=capture_s, step=stepped, trace=traced)
+    print(f"ops profile: K1/K2/K3 {traced['counts']} in the trace of pid "
+          f"{pid}, {stepped['launches']} by the counters; device ms "
+          f"{ {k: round(v, 3) for k, v in traced['ms'].items()} } "
+          f"({sum(traced['ms'].values()):.3f} summed) on {card}",
+          flush=True)
+    _check(traced["counts"] == stepped["launches"] == _ops_step_launches()
+           and stepped["capturing"],
+           f"ops profile: the trace holds K1/K2/K3 {traced['counts']}, the "
+           f"counters read {stepped['launches']}")
+    return stepped["launches"]
+
+
+def _ops_step_launches():
+    """K1/K2/K3 of one step of OPS_CFG: K1 twice a layer (remat "dots")."""
+    n = OPS_CFG["n_layers"]
+    return dict(k1=2 * n, k2=n, k3=n)
+
+
+def _ops_tune(rt, out, config, reference):
+    """tune: ASHA over OPS_LRS, each trial on half of the head's card."""
+    from ray_tpu_torch import tune
+
+    # the trials run two at a time, in the order of their loss after two
+    # steps (lowest first), so the last, the worst, meets a full rung
+    order = sorted(OPS_LRS, key=lambda lr: reference[lr][1])
+    sched = tune.ASHAScheduler(max_t=OPS_TUNE_STEPS, grace_period=1,
+                               reduction_factor=2)
+    t = time.monotonic()
+    results = tune.Tuner(
+        _ops_trial,
+        param_space=dict(config, lr=tune.grid_search(order),
+                         steps=OPS_TUNE_STEPS, pause_s=OPS_TUNE_PAUSE_S),
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=sched,
+                                    max_concurrent_trials=2),
+        trial_resources={"GPU": 0.5, OPS_HEAD_RESOURCE: 0.5},
+    ).fit(timeout=600)
+    fit_s = time.monotonic() - t
+    trials = [dict(lr=r.config["lr"], status=r.status, error=r.error,
+                   losses=[m["loss"] for m in r.history],
+                   pids=sorted({m["pid"] for m in r.history}),
+                   devices=sorted({m["device"] for m in r.history}),
+                   launches=[m["launches"] for m in r.history])
+              for r in results]
+    best = results.get_best_result()
+    lowest = min(results, key=lambda r: r.metrics["loss"])
+    out["tune"] = dict(order=list(order), fit_s=fit_s, trials=trials,
+                       best_lr=best.config["lr"],
+                       lowest_lr=lowest.config["lr"],
+                       best_is_lowest=best.trial_id == lowest.trial_id)
+    print(f"ops tune: "
+          f"{[(x['lr'], x['status'], len(x['losses'])) for x in trials]}"
+          f" in {fit_s:.2f} s; best lr {best.config['lr']}", flush=True)
+    for x in trials:
+        _check(x["status"] in ("TERMINATED", "STOPPED") and not x["error"],
+               f"ops tune: trial at lr {x['lr']} {x['status']}: {x['error']}")
+        for i, loss in enumerate(x["losses"]):
+            _check(abs(loss - reference[x["lr"]][i]) <= TOL_TRAINER_LOSS,
+                   f"ops tune: lr {x['lr']} step {i + 1} loss {loss} "
+                   f"against {reference[x['lr']][i]} in process")
+        _check(all(la == _ops_step_launches() for la in x["launches"]),
+               f"ops tune: lr {x['lr']} launched {x['launches']}")
+    _check(any(x["status"] == "STOPPED" for x in trials),
+           f"ops tune: ASHA stopped no trial: {trials}")
+    _check(out["tune"]["best_is_lowest"] and best.config["lr"] == order[0],
+           f"ops tune: best lr {best.config['lr']}, lowest loss at "
+           f"{lowest.config['lr']}, reference best {order[0]}")
+    return {k: sum(la[k] for x in trials for la in x["launches"])
+            for k in ("k1", "k2", "k3")}
+
+
+def _ops_wait_gpus(rt, want, timeout=60.0):
+    """The cluster's available GPUs, once they read ``want`` (or at the
+    timeout)."""
+    deadline = time.monotonic() + timeout
+    while (rt.available_resources().get("GPU", 0.0) != want
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    return rt.available_resources().get("GPU", 0.0)
+
+
+def _ops_job_wait(client, sid, want, timeout):
+    deadline = time.monotonic() + timeout
+    st = client.get_job_status(sid)
+    while st not in want and time.monotonic() < deadline:
+        time.sleep(0.2)
+        st = client.get_job_status(sid)
+    return st
+
+
+def _ops_gpu_job(client, out, sid, t, reference):
+    """jobs: the GPU job submitted at ``t``, which joins the cluster and
+    takes one step, SUCCEEDS with the card's name and the in-process loss
+    in its logs."""
+    status = _ops_job_wait(client, sid, ("SUCCEEDED", "FAILED", "STOPPED"),
+                           300)
+    job_s = time.monotonic() - t
+    logs = client.get_job_logs(sid)
+    rows = [json.loads(ln)["ops_job"] for ln in logs.splitlines()
+            if ln.startswith('{"ops_job"')]
+    _check(status == "SUCCEEDED" and len(rows) == 1,
+           f"ops jobs: the GPU job {status}: {logs[-2000:]}")
+    job = rows[0]
+    out["jobs"] = dict(job_s=job_s, job=job,
+                       node=client.get_job_info(sid).get("supervisor_node"))
+    print(f"ops jobs: {job['device_name']} loss {job['loss']} in "
+          f"{job_s:.2f} s", flush=True)
+    _check(job["device_name"] in logs and abs(
+        job["loss"] - reference[TRAIN_LR][0]) <= TOL_TRAINER_LOSS,
+        f"ops jobs: the job's loss {job['loss']} against "
+        f"{reference[TRAIN_LR][0]} in process")
+    _check(job["launches"] == _ops_step_launches(),
+           f"ops jobs: the job's step launched {job['launches']}")
+    return job["launches"]
+
+
+def _ops_loop_job(rt, client, out, before):
+    """jobs: a looping GPU job stopped; the GPU it held returns."""
+    loop = client.submit_job(
+        entrypoint=f"{sys.executable} -c \"import time\nwhile True: "
+                   f"time.sleep(0.1)\"", resources={"GPU": 1})
+    running = _ops_job_wait(client, loop, ("RUNNING",), 120)
+    held = _ops_wait_gpus(rt, before - 1.0)
+    t = time.monotonic()
+    client.stop_job(loop)
+    stopped = _ops_job_wait(client, loop, ("STOPPED", "SUCCEEDED", "FAILED"),
+                            120)
+    after = _ops_wait_gpus(rt, before)
+    stop_s = time.monotonic() - t
+    out["jobs"].update(loop_status=[running, stopped],
+                       gpus=[before, held, after], stop_s=stop_s)
+    print(f"ops jobs: the looping job {running} then {stopped} in "
+          f"{stop_s:.2f} s, GPU {before} -> {held} -> {after}", flush=True)
+    _check(running == "RUNNING" and stopped == "STOPPED" and held == before - 1
+           and after == before,
+           f"ops jobs: looping job {running} -> {stopped}, GPU {before} -> "
+           f"{held} -> {after}")
+
+
+def _ops_preempt_start(config, tmp):
+    """preempt: the fit of a TorchTrainer with one half-card worker, on a
+    thread. Returns its controller, thread, result box and train
+    config."""
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+
+    cfg = dict(config, lr=TRAIN_LR, steps=OPS_PREEMPT_STEPS,
+               ckpt_every=OPS_CKPT_EVERY, notice_after=OPS_NOTICE_AFTER,
+               wait_s=OPS_WAIT_PREEMPT_S, marker=os.path.join(tmp, "noticed"),
+               run_dir=os.path.join(tmp, "preempt"))
+    # half a card: the resumed worker shares the head's with the last
+    # tune trial
+    trainer = TorchTrainer(
+        _ops_preempt_fn, train_loop_config=cfg,
+        scaling_config=ScalingConfig(
+            num_workers=1, use_gpu=True,
+            resources_per_worker={"GPU": OPS_TRAINER_GPU}),
+        run_config=RunConfig(
+            name="preempt", storage_path=tmp,
+            failure_config=FailureConfig(max_failures=0),
+            checkpoint_config=CheckpointConfig(num_to_keep=2)))
+    ctrl = trainer._controller()
+    box = {}
+    fit = threading.Thread(target=lambda: box.update(result=ctrl.run()),
+                           daemon=True)
+    fit.start()
+    return ctrl, fit, box, cfg
+
+
+def _ops_preempt(rt, out, cluster, run, reference):
+    """preempt: once the first attempt (on the spot node) has marked its
+    step-2 checkpoint, a wave aimed at the spot daemon through
+    ``chaos_set``; the run resumes on the head's card."""
+    from ray_tpu_torch.runtime.rpc import RpcClient
+
+    ctrl, fit, box, cfg = run
+    head, spot = cluster.nodes[0], cluster.nodes[1]
+    cw = rt.get_core_worker()
+    deadline = time.monotonic() + 300
+    while not os.path.exists(cfg["marker"]) and fit.is_alive():
+        _check(time.monotonic() < deadline,
+               "ops preempt: the first attempt never reached its notice")
+        time.sleep(0.05)
+    _check(os.path.exists(cfg["marker"]),
+           f"ops preempt: the run ended before its notice: {box}")
+    with open(cfg["marker"]) as f:
+        first_node = f.read()
+
+    async def aim():
+        c = RpcClient(spot.address, name="chip_smoke->spot")
+        try:
+            return await c.call("chaos_set", {"config": {
+                "testing_preempt_wave":
+                    f"1.0:0:{OPS_NOTICE_DEADLINE_MS}"}}, timeout=30)
+        finally:
+            await c.close()
+
+    t_notice = time.time()
+    aimed = cw.run_sync(aim(), timeout=30)
+    seen = {}  # each state of the spot node: (s after the notice, reason)
+    while "DEAD" not in seen and time.time() < t_notice + 60:
+        rec = _ops_nodes(cw).get(spot.node_id)
+        if rec is not None and rec["state"] not in seen:
+            seen[rec["state"]] = (time.time() - t_notice,
+                                  rec.get("drain_reason", ""))
+            seen["death"] = rec.get("death")
+        time.sleep(0.05)
+    fit.join(300)
+    _check(not fit.is_alive(), "ops preempt: fit did not return")
+    result = box["result"]
+    hist = [m for m in result.metrics_history if "loss" in m]
+    first = [m for m in hist if m["restored"] is None]
+    second = [m for m in hist if m["restored"] is not None]
+    out["preempt"] = dict(
+        error=result.error, aimed=aimed, states=seen,
+        first_node=first_node, spot=spot.node_id, head=head.node_id,
+        steps_first=[m["step"] for m in first],
+        steps_second=[m["step"] for m in second],
+        restored=sorted({m["restored"] for m in second}),
+        nodes_second=sorted({m["node"] for m in second}),
+        devices=sorted({m["device"] for m in hist}),
+        losses=[m["loss"] for m in hist],
+        drain_rejoins=ctrl.drain_rejoins, failures=ctrl.failure_count,
+        notice_to_preempting_s=seen.get("PREEMPTING", (None,))[0],
+        # the drain ends with the node's expected death "drained (...)"
+        notice_to_drained_s=seen.get("DEAD", (None,))[0],
+        notice_to_resumed_step_s=(second[0]["t_step_end"] - t_notice
+                                  if second else None))
+    p = out["preempt"]
+    print(f"ops preempt: notice to PREEMPTING "
+          f"{p['notice_to_preempting_s']} s, to DRAINING "
+          f"{seen.get('DRAINING', (None,))[0]} s, to drained (DEAD) "
+          f"{p['notice_to_drained_s']} s, to the resumed step "
+          f"{p['notice_to_resumed_step_s']} s; steps "
+          f"{p['steps_first']} on the spot node, {p['steps_second']} on "
+          f"the head; rejoins {p['drain_rejoins']}, failures "
+          f"{p['failures']}", flush=True)
+    death = seen.get("death") or {}
+    _check(result.error is None, f"ops preempt: fit failed: {result.error}")
+    _check(first_node == spot.node_id and p["nodes_second"] == [head.node_id],
+           f"ops preempt: first attempt on {first_node}, resumed on "
+           f"{p['nodes_second']} (spot {spot.node_id}, head {head.node_id})")
+    _check(seen.get("PREEMPTING", (0, ""))[1] == "preemption"
+           and death.get("expected") is True
+           and death.get("reason") == "drained (preemption)",
+           f"ops preempt: the spot node went {seen}")
+    _check(p["drain_rejoins"] == 1 and p["failures"] == 0,
+           f"ops preempt: {p['drain_rejoins']} planned rejoins, "
+           f"{p['failures']} failures")
+    _check(p["steps_first"] == list(range(1, OPS_NOTICE_AFTER + 1))
+           and p["restored"] == [OPS_NOTICE_AFTER]
+           and p["steps_second"] == list(range(OPS_NOTICE_AFTER + 1,
+                                               OPS_PREEMPT_STEPS + 1)),
+           f"ops preempt: steps {p['steps_first']} then "
+           f"{p['steps_second']} from {p['restored']}")
+    for m in hist:
+        _check(abs(m["loss"] - reference[TRAIN_LR][m["step"] - 1])
+               <= TOL_TRAINER_LOSS,
+               f"ops preempt: step {m['step']} loss {m['loss']} against "
+               f"{reference[TRAIN_LR][m['step'] - 1]} uninterrupted")
+        _check(m["launches"] == _ops_step_launches(),
+               f"ops preempt: step {m['step']} launched {m['launches']}")
+    return {k: sum(m["launches"][k] for m in hist) for k in ("k1", "k2", "k3")}
+
+
+def phase_ops(dev, card=""):
+    """The preemption watcher, the profiler, tune and job submission on
+    one two-node cluster (see the module docstring). The parts overlap
+    where the cards allow: the profiled actor (on the spot node's card)
+    and the GPU job (the head's: job supervisors stay off spot capacity)
+    start while this process computes the references; the tune trials
+    (half of the head's card each, through OPS_HEAD_RESOURCE) run beside
+    the preempted trainer, whose half-card worker starts on the spot
+    node's card and resumes on the head's beside the last trial."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch._private.protocol import SchedulingStrategy
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    t_phase = time.monotonic()
+    out = {"config": dict(OPS_CFG, attention_impl="flash", remat=TRAIN_REMAT,
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, lrs=OPS_LRS)}
+    config = dict(cfg=OPS_CFG, lr=TRAIN_LR, remat=TRAIN_REMAT, seed=SEED,
+                  tokens=_train_tokens_np())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    t = time.monotonic()
+    cluster = Cluster(head_resources={"CPU": OPS_CPUS, "GPU": 1,
+                                      OPS_HEAD_RESOURCE: 1})
+    spot = cluster.add_node(resources={"CPU": OPS_CPUS, "GPU": 1},
+                            labels={"spot": "true"})
+    rt.init(address=cluster.address)
+    out["cluster_start_s"] = time.monotonic() - t
+    launches, stage_s = {}, {}
+    try:
+        # 1. the profiled actor (spot) and the GPU job (head) start while
+        # the references run here
+        t = time.monotonic()
+        actor = rt.remote(num_gpus=1)(_OpsProfiled).options(
+            scheduling_strategy=SchedulingStrategy(
+                kind="NODE_AFFINITY", node_id=spot.node_id,
+                soft=False)).remote(config)
+        client = JobSubmissionClient()
+        t_job = time.monotonic()
+        sid = client.submit_job(
+            entrypoint=f"{sys.executable} {os.path.abspath(__file__)} "
+                       f"--ops-job {TRAIN_LR!r}", resources={"GPU": 1})
+        t_ref = time.monotonic()
+        reference = _ops_reference(dev)
+        out["reference_s"] = time.monotonic() - t_ref
+        out["reference"] = {repr(k): v for k, v in reference.items()}
+        launches["profile"] = _ops_profile(rt, out, actor, card)
+        launches["jobs"] = _ops_gpu_job(client, out, sid, t_job, reference)
+        stage_s["profile_job_reference"] = time.monotonic() - t
+        # 2. the looping job, while no other part holds a card
+        t = time.monotonic()
+        total = rt.cluster_resources().get("GPU", 0.0)
+        _ops_loop_job(rt, client, out, _ops_wait_gpus(rt, total))
+        stage_s["loop_job"] = time.monotonic() - t
+        # 3. tune on the head's card beside the preempted trainer, which
+        # starts on the spot node's once the first two trials hold the
+        # head's; after the notice it resumes on the head's beside the
+        # last trial
+        t = time.monotonic()
+        box = {}
+        tuner = threading.Thread(target=lambda: box.update(
+            tune=_ops_tune(rt, out, config, reference)), daemon=True)
+        tuner.start()
+        _check(_ops_wait_gpus(rt, total - 1.0) == total - 1.0,
+               "ops: the tune trials never took the head's card")
+        run = _ops_preempt_start(config, tmp)
+        launches["preempt"] = _ops_preempt(rt, out, cluster, run, reference)
+        tuner.join(600)
+        _check(not tuner.is_alive() and "tune" in box,
+               f"ops tune: the fit did not return ({box})")
+        launches["tune"] = box["tune"]
+        stage_s["tune_and_preempt"] = time.monotonic() - t
+    finally:
+        t = time.monotonic()
+        rt.shutdown()
+        # SIGTERM first: a daemon that stops ends its workers (they run in
+        # sessions of their own, which a SIGKILL of the daemon's leaves)
+        for node in list(cluster.nodes):
+            cluster.kill_node(node, force=False)
+        cluster.shutdown()
+        GLOBAL_CONFIG.reset()
+        chaos.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while _cluster_pids(cluster.session_dir) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _cluster_pids(cluster.session_dir)
+    stage_s["shutdown"] = time.monotonic() - t
+    out["left_after_shutdown"] = left
+    out["stage_s"] = stage_s
+    out["launches_by_part"] = launches
+    out["launches"] = {k: sum(v[k] for v in launches.values())
+                       for k in ("k1", "k2", "k3")}
+    out["phase_s"] = time.monotonic() - t_phase
+    torch.cuda.empty_cache()
+    print(json.dumps({"ops": out}, default=str), flush=True)
+    print(f"ops: phase {out['phase_s']:.1f} s (cluster "
+          f"{out['cluster_start_s']:.1f}, "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage_s.items())
+          + f"; reference {out['reference_s']:.1f} inside the first)",
+          flush=True)
+    _check(not left, f"ops: processes left after shutdown: {left}")
+    return out
+
+
 def _path_launches(report, key):
-    """``key``'s launches in the trainer, stages, apps and data phases'
+    """``key``'s launches in the trainer, stages, apps, data and ops phases'
     runs (the train worker's steps, both pipelines' steps over their
     stages, the apps' prefill worker and engines, the steps fed by a
-    Dataset)."""
+    Dataset, the ops phase's profiled step, tune trials, GPU job and
+    preempted trainer)."""
     return sum(report[p]["launches"].get(key, 0)
-               for p in ("trainer", "stages", "apps", "data") if p in report)
+               for p in ("trainer", "stages", "apps", "data", "ops")
+               if p in report)
 
 
 def kernels_line(report):
     """The kernels record: each kernel at its main path's shape, with the
     launches of that path's run (K1: the serve phase; K2/K3: the train
     phase's timed steps; K4, K5a, K5b: the ring phase's timed training
-    steps, over its 4 ranks), K1-K3 with the trainer and stages phases'
-    launches added."""
+    steps, over its 4 ranks), K1-K3 with the launches of the trainer,
+    stages, apps, data and ops phases added (``_path_launches``)."""
     line = []
     if "k1" in report and "serve" in report:
         row = next(r for r in report["k1"] if r["causal"] and (
@@ -5601,10 +6257,13 @@ def _timed(record, name, fn, *args):
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages", "apps", "data", "algos", "collective")
+          "trainer", "stages", "apps", "data", "algos", "collective", "ops")
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ops-job"]:  # the ops phase's GPU job
+        return _ops_job_main(float(argv[1]))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
@@ -5735,6 +6394,9 @@ def _run_phases(phases, dev, card, report, phase_s):
         torch.cuda.empty_cache()
         report["collective"] = _timed(phase_s, "collective",
                                       phase_collective, dev)
+    if "ops" in phases:
+        torch.cuda.empty_cache()
+        report["ops"] = _timed(phase_s, "ops", phase_ops, dev, card)
 
 
 if __name__ == "__main__":

@@ -44,18 +44,6 @@ from ray_tpu_torch.runtime.rpc import RpcClient, RpcServer
 logger = logging.getLogger(__name__)
 
 
-def _refuse_preemption(cfg) -> None:
-    """The preemption plane (the GCE maintenance-event watcher and its
-    seeded chaos stand-ins) is not ported: a config that turns it on is
-    refused instead of running without it."""
-    on = [k for k in ("preemption_watcher_enabled", "testing_preempt_notice",
-                      "testing_preempt_wave") if cfg.get(k)]
-    if on:
-        raise NotImplementedError(
-            f"{on}: the preemption watcher (ray_tpu/tpu/preemption.py) is "
-            "not ported yet: ROADMAP Queue 1, R4")
-
-
 def _read_file_range(path: str, offset: int, limit: int) -> bytes:
     """Bounded positional read, run in a worker thread by the async log/
     profile paths so the daemon's event loop never blocks on disk."""
@@ -245,6 +233,9 @@ class NodeDaemon:
         # the process exits cleanly once the drain completes
         self._drain_task: Optional[asyncio.Task] = None
         self._exit_cb = None
+        # preemption watcher (real metadata polling or the chaos stand-in);
+        # kept for introspection/stop and so tests can assert publish counts
+        self._preempt_watcher = None
         # subscriber-side pubsub gap detection: last publish seq seen on the
         # "nodes" channel (control_store stamps every notice with _seq)
         self._nodes_seq: Optional[int] = None
@@ -347,7 +338,26 @@ class NodeDaemon:
         self._oom_kills = 0
         self._tasks.append(spawn(self._memory_monitor_loop()))
         self._tasks.append(spawn(self._resource_gossip_loop()))
-        _refuse_preemption(GLOBAL_CONFIG)
+        # preemption plane: a real (GCE maintenance-event metadata/SIGTERM)
+        # or synthetic (seeded chaos) preemption notice triggers a terminal
+        # drain — the 30-90s of warning spot GPU VMs give must not be
+        # thrown away (reference: autoscaler preemption handling)
+        notice = chaos.preempt_notice()
+        if notice is not None:
+            delay_s, deadline_s = notice
+            self._tasks.append(spawn(self._chaos_preempt(delay_s, deadline_s)))
+        # correlated spot-reclaim wave (testing_preempt_wave): a seeded draw
+        # preempts a fraction of the SPOT fleet inside one window — only
+        # nodes advertising spot/preemptible capacity are eligible victims
+        wave = chaos.preempt_wave(
+            self.labels.get("spot") == "true"
+            or self.labels.get("preemptible") == "true")
+        if wave is not None:
+            offset_s, deadline_s = wave
+            self._tasks.append(spawn(self._chaos_preempt(offset_s, deadline_s)))
+        if GLOBAL_CONFIG.get("preemption_watcher_enabled"):
+            self._preempt_watcher = self._make_preempt_watcher()
+            self._tasks.append(spawn(self._preempt_watcher.run()))
         logger.info(
             "daemon %s up at %s store=%s resources=%s",
             self.node_id.hex()[:8], addr, self.store_name, self.total_resources.to_dict(),
@@ -356,6 +366,8 @@ class NodeDaemon:
 
     async def stop(self):
         self._stopped = True
+        if self._preempt_watcher is not None:
+            self._preempt_watcher.stop()
         for t in self._tasks:
             t.cancel()
         for w in list(self.workers.values()):
@@ -2335,7 +2347,14 @@ class NodeDaemon:
         # test can aim a correlated reclaim at a fleet that is already
         # mid-workload (the start()-time draw only covers daemons born
         # after the spec was set)
-        _refuse_preemption(cfg)
+        if cfg.get("testing_preempt_wave"):
+            wave = chaos.preempt_wave(
+                self.labels.get("spot") == "true"
+                or self.labels.get("preemptible") == "true")
+            if wave is not None:
+                offset_s, deadline_s = wave
+                self._tasks.append(
+                    spawn(self._chaos_preempt(offset_s, deadline_s)))
         return {"ok": True, "role": chaos.role(), "pid": os.getpid()}
 
     async def rpc_chaos_kill(self, conn_id: int, payload: dict) -> dict:
@@ -2452,6 +2471,48 @@ class NodeDaemon:
     # — stop granting, let running leases finish to the deadline, hand off
     # primary copies, then die an EXPECTED death)
     # ------------------------------------------------------------------
+
+    def _make_preempt_watcher(self, deadline_s: Optional[float] = None,
+                              transport=None):
+        """One construction site for real and synthetic preemption notices
+        so both take the identical proactive path: publish the TTL'd
+        notice, keep re-publishing (failover-proof), self-drain only when
+        the control plane misses the grace window."""
+        from ray_tpu_torch.gpu.preemption import PreemptionWatcher
+
+        return PreemptionWatcher(
+            on_notice=self._self_drain,
+            transport=transport,
+            drain_deadline_s=deadline_s,
+            publish=self._publish_preempt_notice,
+            drain_started=lambda: self._draining or self._drain_task is not None,
+        )
+
+    async def _publish_preempt_notice(self, deadline_s: float) -> None:
+        """File/refresh this node's TTL'd preemption notice at the control
+        store (PREEMPTING state; the autoscaler treats our committed load
+        as demand NOW). Raises on failure so the watcher retries."""
+        reply = await self.control.call(
+            "report_preemption_notice",
+            {"node_id": self.node_id.binary(), "deadline_s": deadline_s},
+            timeout=5,
+        )
+        if not reply.get("ok"):
+            raise RuntimeError(f"report_preemption_notice refused: {reply}")
+
+    async def _chaos_preempt(self, delay_s: float, deadline_s: float):
+        """Seeded `testing_preempt_notice`/`testing_preempt_wave` fault: a
+        deterministic stand-in for the GCE maintenance event — the notice
+        lands mid-workload and must produce a non-event, not a recovery
+        storm. Routed through the watcher's fire path so proactive mode
+        (publish + pre-provision + deferred drain) is exercised exactly as
+        a real metadata notice would."""
+        await asyncio.sleep(delay_s)
+        logger.warning("synthetic preemption notice (chaos): %.1fs deadline",
+                       deadline_s)
+        self._preempt_watcher = self._make_preempt_watcher(
+            deadline_s=deadline_s)
+        await self._preempt_watcher._fire("synthetic preemption (chaos)")
 
     async def _drain_and_exit(self, reason: str, deadline: float):
         try:

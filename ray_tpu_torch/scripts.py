@@ -1,14 +1,15 @@
 """Cluster CLI: `python -m ray_tpu_torch.scripts <command>`.
 
 Reference surface: python/ray/scripts/scripts.py (`ray start` :800,
-`ray stop` :1341, `ray status`, `ray serve`). Head state (address + pids)
+`ray stop` :1341, `ray status`, `ray job submit/status/logs/list/stop`,
+`ray serve`). Head state (address + pids)
 persists in a state file so `stop`/`status` work from a fresh shell; it is
 not the JAX package's file, so neither CLI stops the other's nodes.
 
 `start` gives a node `--num-gpus` CUDA devices as its "GPU" resource; without
-it the node daemon detects them when RT_GPU_AUTODETECT is set. `job`, `up`
-and `down` wait for the port's job_submission/ and autoscaler/ (ROADMAP
-Queue 1, R6 and R7) and exit with status 2.
+it the node daemon detects them when RT_GPU_AUTODETECT is set. `job submit
+--resources '{"GPU": 1}'` leases the job a card. `up` and `down` wait for
+the port's autoscaler/ (ROADMAP Queue 1, R7) and exit with status 2.
 """
 
 from __future__ import annotations
@@ -132,6 +133,54 @@ def cmd_status(args) -> int:
     return 0
 
 
+def cmd_job(args) -> int:
+    import ray_tpu_torch
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    client = JobSubmissionClient(_resolve_address(args))
+    try:
+        if args.job_cmd == "submit":
+            import shlex
+
+            runtime_env = {}
+            if args.working_dir:
+                runtime_env["working_dir"] = args.working_dir
+            if args.env_vars:
+                runtime_env["env_vars"] = json.loads(args.env_vars)
+            argv = list(args.entrypoint)
+            if argv and argv[0] == "--":
+                argv = argv[1:]
+            sid = client.submit_job(
+                entrypoint=shlex.join(argv), runtime_env=runtime_env,
+                tenant=args.tenant,
+                resources=json.loads(args.resources)
+                if args.resources else None,
+                max_retries=args.max_retries)
+            print(f"submitted job {sid}")
+            if not args.no_wait:
+                for chunk in client.tail_job_logs(sid):
+                    sys.stdout.write(chunk)
+                    sys.stdout.flush()
+                status = client.get_job_status(sid)
+                print(f"\njob {sid} finished: {status}")
+                return 0 if status == "SUCCEEDED" else 1
+        elif args.job_cmd == "status":
+            print(client.get_job_status(args.id))
+        elif args.job_cmd == "logs":
+            print(client.get_job_logs(args.id))
+        elif args.job_cmd == "stop":
+            client.stop_job(args.id)
+            print(f"stopped {args.id}")
+        elif args.job_cmd == "list":
+            for j in client.list_jobs(offset=args.offset, limit=args.limit,
+                                      tenant=args.tenant):
+                print(f"{j['submission_id']}  {j['status']:10s} "
+                      f"{j.get('tenant', ''):12s} {j['entrypoint']}")
+    finally:
+        ray_tpu_torch.shutdown()
+    return 0
+
+
 def cmd_serve(args) -> int:
     """`serve run|deploy|status|shutdown` (reference: the serve CLI
     in python/ray/serve/scripts.py driving config-file deploys)."""
@@ -163,7 +212,6 @@ def cmd_serve(args) -> int:
 
 
 _NOT_PORTED = {
-    "job": "job_submission/ (ROADMAP Queue 1, R6)",
     "up": "autoscaler/ (ROADMAP Queue 1, R7)",
     "down": "autoscaler/ (ROADMAP Queue 1, R7)",
 }
@@ -179,7 +227,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ray_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    for name in ("up", "down", "job"):
+    for name in ("up", "down"):
         sp = sub.add_parser(name, help=f"not ported: {_NOT_PORTED[name]}")
         sp.add_argument("rest", nargs=argparse.REMAINDER)
         sp.set_defaults(fn=cmd_not_ported)
@@ -202,6 +250,29 @@ def main(argv=None) -> int:
     sp = sub.add_parser("status", help="show cluster nodes + resources")
     sp.add_argument("--address", default="")
     sp.set_defaults(fn=cmd_status)
+
+    sp = sub.add_parser("job", help="submit and manage jobs")
+    sp.add_argument("--address", default="")
+    jsub = sp.add_subparsers(dest="job_cmd", required=True)
+    js = jsub.add_parser("submit")
+    js.add_argument("--working-dir", default="")
+    js.add_argument("--env-vars", default="")
+    js.add_argument("--no-wait", action="store_true")
+    js.add_argument("--tenant", default=None,
+                    help="tenant key for quota/fair-share accounting")
+    js.add_argument("--resources", default="",
+                    help='job resource request as JSON, e.g. \'{"GPU": 1}\'')
+    js.add_argument("--max-retries", type=int, default=0,
+                    help="resubmissions allowed after supervisor loss")
+    js.add_argument("entrypoint", nargs=argparse.REMAINDER)
+    for name in ("status", "logs", "stop"):
+        j = jsub.add_parser(name)
+        j.add_argument("id")
+    jl = jsub.add_parser("list")
+    jl.add_argument("--offset", type=int, default=0)
+    jl.add_argument("--limit", type=int, default=100)
+    jl.add_argument("--tenant", default=None)
+    sp.set_defaults(fn=cmd_job)
 
     sp = sub.add_parser(
         "serve", help="deploy serve applications from a config file")

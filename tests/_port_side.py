@@ -743,7 +743,13 @@ def import_check(root):
         "'ray_tpu_torch.util.collective.nccl_group', "
         "'ray_tpu_torch.experimental.rdt', "
         "'ray_tpu_torch.experimental.device_channel', "
-        "'ray_tpu_torch.gpu.slice'} <= set(names), names\n"
+        "'ray_tpu_torch.gpu.slice', 'ray_tpu_torch.gpu.preemption', "
+        "'ray_tpu_torch.gpu.profiler', 'ray_tpu_torch.tune', "
+        "'ray_tpu_torch.tune._scheduler', 'ray_tpu_torch.tune._search', "
+        "'ray_tpu_torch.tune._session', 'ray_tpu_torch.tune._trial', "
+        "'ray_tpu_torch.job_submission', "
+        "'ray_tpu_torch.job_submission._manager', "
+        "'ray_tpu_torch.job_submission._supervisor'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1847,3 +1853,49 @@ def col_backend_path(world):
     if errors:
         raise RuntimeError("; ".join(errors))
     return out
+
+
+def profiler_captures(root):
+    """``gpu/profiler.py`` on the CPU: ``capture_local`` around a workload,
+    then on a port cluster ``capture_on_node`` of the capturing task's own
+    worker (JAX's ``test_jax_profiler_capture``) and of an actor through
+    the listener its ``init_profiler(0)`` started. Returns the trace files,
+    whether the local trace holds the workload's ``aten::mm``, and the
+    pids of this process and of the actor."""
+    import json
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.gpu import profiler
+    from ray_tpu_torch.util.state import list_nodes
+
+    def names(path):
+        with open(path) as f:
+            return {e.get("name") for e in json.load(f)["traceEvents"]}
+
+    local_dir = profiler.capture_local(
+        os.path.join(root, "local"),
+        workload=lambda: torch.mm(torch.ones(8, 8), torch.ones(8, 8)))
+    local = sorted(os.path.join(local_dir, f) for f in os.listdir(local_dir))
+
+    @rt.remote
+    class Profiled:
+        def start(self):
+            from ray_tpu_torch.gpu import profiler as p
+
+            return os.getpid(), p.init_profiler(0), p.init_profiler(0)
+
+    rt.init(num_cpus=2)
+    try:
+        node = list_nodes()[0]["node_id"]
+        files = profiler.capture_on_node(node, os.path.join(root, "prof"),
+                                         duration_s=0.5)
+        actor = Profiled.remote()
+        actor_pid, port, again = rt.get(actor.start.remote(), timeout=120)
+        actor_files = profiler.capture_on_node(node, None, duration_s=0.5,
+                                               port=port)
+        rt.kill(actor)
+    finally:
+        rt.shutdown()
+    return dict(local=local, local_mm="aten::mm" in names(local[0]),
+                files=files, actor_pid=actor_pid, port=port, again=again,
+                actor_files=actor_files, pid=os.getpid())

@@ -7,7 +7,7 @@ resize of ``_elastic.py``, ``ElasticScalingPolicy``, the generation-scoped
 ``cluster_utils``. The chaos soak drains its victim through the control
 store's ``drain_node`` and its shards are torch tensors, moved host-staged
 through the object plane. JAX's ``test_preemption_watcher_rearm_fires_again``
-waits for the port's preemption watcher (ROADMAP Queue 1, R4). The runtime
+is mirrored in ``test_torch_preemption.py``, beside the watcher. The runtime
 imports no torch, so these run in the pytest worker; the train fns import
 torch in the port's worker processes.
 """

@@ -4,9 +4,10 @@ simulated-node plane), ``cluster_utils.Cluster.add_sim_nodes`` and
 counterparts of the JAX package's ``test_scale_plane.py`` cases on the
 plane (its in-stream gap reconcile, real placement skipping simnodes, a
 plane's convergence, drain and leases, ``add_sim_nodes`` of 8 nodes); the
-CLI cases drive ``start``, ``status``, ``serve deploy``, ``serve status``
-and ``stop`` in subprocesses, and ``job``, ``up`` and ``down``, which wait
-for the port's job submission and autoscaler. Nothing here imports torch.
+CLI cases drive ``start``, ``status``, ``serve deploy``, ``serve status``,
+``job submit``, ``job status``, ``job logs``, ``job stop``, ``job list``
+and ``stop`` in subprocesses, and ``up`` and ``down``, which wait for the
+port's autoscaler. Nothing here imports torch.
 """
 
 import asyncio
@@ -312,6 +313,43 @@ def test_cli_serve_deploy_then_status(cli):
     assert json.loads(st.stdout)["Echo"]["running"] == 1
 
 
+def test_cli_job_submit_waits_for_the_logs(cli):
+    out = _cli(cli["env"], "job", "submit", "--", sys.executable, "-c",
+               "print('cli-job-ok')", timeout=180)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "cli-job-ok" in out.stdout
+    sid = out.stdout.split("submitted job ")[1].split()[0]
+    assert f"job {sid} finished: SUCCEEDED" in out.stdout
+    st = _cli(cli["env"], "job", "status", sid)
+    assert st.returncode == 0 and st.stdout.strip() == "SUCCEEDED", st.stderr
+    logs = _cli(cli["env"], "job", "logs", sid)
+    assert logs.returncode == 0 and "cli-job-ok" in logs.stdout
+
+
+def test_cli_job_stop_of_a_gpu_job(cli):
+    """A job leasing one of the head's two GPUs, submitted without waiting,
+    then stopped: `status` reads RUNNING, then STOPPED, and `list` shows
+    it."""
+    out = _cli(cli["env"], "job", "submit", "--no-wait", "--resources",
+               json.dumps({"GPU": 1}), "--", sys.executable, "-c",
+               "import time; time.sleep(600)")
+    assert out.returncode == 0, out.stderr
+    sid = out.stdout.split("submitted job ")[1].split()[0]
+    deadline = time.time() + 60
+    status = ""
+    while time.time() < deadline and status != "RUNNING":
+        status = _cli(cli["env"], "job", "status", sid).stdout.strip()
+        time.sleep(0.3)
+    assert status == "RUNNING"
+    stop = _cli(cli["env"], "job", "stop", sid)
+    assert stop.returncode == 0 and f"stopped {sid}" in stop.stdout
+    st = _cli(cli["env"], "job", "status", sid)
+    assert st.stdout.strip() == "STOPPED", st.stdout + st.stderr
+    listed = _cli(cli["env"], "job", "list")
+    assert any(ln.startswith(sid) and "STOPPED" in ln
+               for ln in listed.stdout.splitlines()), listed.stdout
+
+
 def test_cli_stop_ends_the_cluster(cli):
     out = _cli(cli["env"], "stop", timeout=60)
     assert out.returncode == 0, out.stderr
@@ -323,9 +361,8 @@ def test_cli_stop_ends_the_cluster(cli):
 
 
 @pytest.mark.parametrize("cmd,needs", [
-    (["job", "submit", "--", "true"], "job_submission/"),
     (["up", "cluster.yaml"], "autoscaler/"),
-    (["down"], "autoscaler/")], ids=["job", "up", "down"])
+    (["down"], "autoscaler/")], ids=["up", "down"])
 def test_cli_refuses_what_is_not_ported(cmd, needs):
     out = _cli(dict(os.environ), *cmd, timeout=60)
     assert out.returncode == 2

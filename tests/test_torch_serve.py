@@ -657,6 +657,9 @@ def test_version_pinned_redeploy_rescales_in_place(ray_init,
     assert handle.method("incr").remote().result(timeout=60) == 1
 
 
+REAP_TICK_S = 0.1  # node_daemon.py::_reap_loop's period
+
+
 def _running(pid):
     """Whether ``pid`` is a live process (a zombie is not)."""
     try:
@@ -722,9 +725,36 @@ def test_delete_leaves_the_actors_a_replica_made(ray_init,
 
 def test_actor_made_in_a_task_outlives_its_reaped_worker(ray_init):
     """A named actor that a task made lives on when the worker pool reaps
-    that task's idle worker, as in the JAX package. The task runs in a
-    runtime env of its own, so no later task reuses its worker, which is
-    then the oldest of more than ``worker_pool_max_idle`` idle ones."""
+    that task's idle worker, as in the JAX package. The creating task and
+    ``worker_pool_max_idle + 2`` holding tasks meet at a barrier, so each
+    runs on a worker of its own while the others run (a finished task's
+    worker cannot take a later one, and none takes the creator's). The
+    creator returns at the barrier and the holders a while later, so its
+    worker is the oldest of more than ``worker_pool_max_idle`` idle ones,
+    the one the pool reaps."""
+    n = GLOBAL_CONFIG.get("worker_pool_max_idle") + 2
+    # a worker goes idle when its lease has been unused this long, and the
+    # daemon's reap loop looks at the idle pool every REAP_TICK_S
+    reap_s = GLOBAL_CONFIG.get("worker_lease_idle_s") + REAP_TICK_S
+
+    @rt.remote
+    class Barrier:
+        def __init__(self):
+            self.arrived = 0
+
+        def arrive(self):
+            self.arrived += 1
+
+        def count(self):
+            return self.arrived
+
+    def meet(barrier, parties):
+        rt.get(barrier.arrive.remote(), timeout=30)
+        deadline = time.time() + 60
+        while rt.get(barrier.count.remote(), timeout=30) < parties:
+            if time.time() > deadline:
+                raise TimeoutError("the tasks did not all start")
+            time.sleep(0.05)
 
     @rt.remote
     class Kept:
@@ -732,29 +762,35 @@ def test_actor_made_in_a_task_outlives_its_reaped_worker(ray_init):
             return "kept"
 
     @rt.remote
-    def make(name):
+    def make(name, barrier, parties):
         h = Kept.options(name=name).remote()
         rt.get(h.ping.remote(), timeout=30)
+        meet(barrier, parties)
         return os.getpid()
 
-    @rt.remote(num_cpus=0)
-    def hold(_):
-        time.sleep(1.0)
+    @rt.remote
+    def hold(barrier, parties, after_s):
+        meet(barrier, parties)
+        time.sleep(after_s)
         return os.getpid()
 
-    creator = rt.get(make.options(
-        runtime_env={"env_vars": {"KEPT_BY_TASK": "1"}}).remote(
-        "made-in-task"), timeout=60)
-    n = GLOBAL_CONFIG.get("worker_pool_max_idle") + 2
-    pids = rt.get([hold.remote(i) for i in range(n)], timeout=60)
+    barrier = Barrier.remote()
+    made = make.remote("made-in-task", barrier, n + 1)
+    # each holder a resource shape of its own: a lease each, so no worker
+    # is handed a second holder behind the first
+    held = [hold.options(num_cpus=0.01 * (i + 1)).remote(
+        barrier, n + 1, 4 * reap_s) for i in range(n)]
+    creator = rt.get(made, timeout=120)
+    pids = rt.get(held, timeout=120)
     assert creator not in pids and len(set(pids)) == n, (creator, pids)
-    deadline = time.time() + 30
+    deadline = time.time() + 60 * reap_s
     while _running(creator) and time.time() < deadline:
         time.sleep(0.2)
     assert not _running(creator), "the creator's idle worker was not reaped"
     kept = rt.get_actor("made-in-task")
     assert rt.get(kept.ping.remote(), timeout=30) == "kept"
     rt.kill(kept)
+    rt.kill(barrier)
 
 
 def test_local_testing_mode_no_cluster():
