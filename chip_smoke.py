@@ -5,7 +5,7 @@
 
 Builds every kernel of the serving, training and sequence-parallel paths
 from ``ray_tpu_torch/csrc`` with nvcc (sm_90a), all sources at once, then
-runs twenty-three phases and fails (exit 1) if any check fails:
+runs twenty-four phases and fails (exit 1) if any check fails:
 
 * k1      — the flash-attention forward kernel against its plain PyTorch
             version at the serving and training shapes, bf16, causal and
@@ -328,6 +328,31 @@ runs twenty-three phases and fails (exit 1) if any check fails:
             stage's seconds, notice to PREEMPTING, DRAINING, DEAD and the
             resumed step. No process of the cluster is left after
             shutdown.
+
+* scale   — the autoscaler (``ray_tpu_torch/autoscaler``) on one head with
+            no GPU (``init(num_cpus=4)``, no detection). (a) ``up``'s
+            local provider: an ``Autoscaler`` over ``SliceNodeProvider``
+            (worker type {"CPU": 2, "GPU": 1}, at most 1, idle timeout 3
+            s, poll 0.3 s); a num_gpus=1 task makes the runtime phase's K1
+            call (1 launch, the k1 phase's gate). Gates: one
+            ``create_node``; the task ran on that node; once idle the node
+            is drained, then terminated, its daemon exits and its death
+            record says expected. (b) ``GpuVmNodeProvider`` on
+            ``FakeGcpTransport``, whose boot starts one daemon a host on
+            the card with the metadata's resources, the head token on host
+            0 and the domain labels, as a VM's startup script would; the
+            pod type is the card's (``H100-1``). A ``TorchTrainer`` with
+            ``ScalingConfig(num_workers=1, use_gpu=True, topology="1x1",
+            accelerator_type=...)``: its domain reservation is the demand.
+            The worker takes 2 steps of the trainer phase's cell (the
+            flagship at 4 of 16 layers, full width) while this process
+            computes them. Gates: one insert and one domain; the steps on
+            the domain's node, K1/K2/K3 8/4/4 a step; every loss bitwise
+            the in-process one; after ``scaler.stop()`` no instance and no
+            daemon of the domain. Printed: submit to ALIVE, to the task's
+            result, idle to terminated; fit to the domain ALIVE, to the
+            first step; stop to terminated. No process of the cluster is
+            left after ``shutdown()``.
 
 The line before the last is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -6154,14 +6179,373 @@ def phase_ops(dev, card=""):
     return out
 
 
+# the scale phase: the autoscaler brings the card in and takes it away
+SCALE_CPUS = 4             # the head's; it has no GPU
+SCALE_WORKER = {"CPU": 2.0, "GPU": 1.0}   # (a)'s worker type
+SCALE_IDLE_S = 3.0         # idle this long: drained, then terminated
+SCALE_POLL_S = 0.3
+SCALE_DOMAIN = {"CPU": 2.0, "GPU": 1.0}   # (b)'s domain host
+# (b)'s trainer: the trainer phase's cell (the flagship at 4 of 16 layers,
+# full width): K1/K2/K3 8/4/4 a step
+SCALE_CFG = TRAINER_CFG
+SCALE_STEPS = 2
+SCALE_WAIT_S = 120
+
+
+def _scale_k1_task(shape, seed):
+    """(a)'s num_gpus=1 task: the runtime phase's K1 call, with the node
+    it ran on."""
+    out = _runtime_k1_task(shape, seed)
+    out["node_id"] = os.environ.get("RT_NODE_ID")
+    return out
+
+
+def _scale_train_fn(config):
+    """(b)'s train fn, in the domain's train worker: the flagship from the
+    seed, ``make_train_step`` steps on the train batch, a report after
+    each."""
+    import torch
+
+    from ray_tpu_torch import train
+
+    dev = train.setup_torch_distributed()
+    t_cuda = time.time()
+    state, train_step, data_dev = _ops_model(
+        config["cfg"], config["lr"], config["remat"], config["seed"], dev)
+    tokens = torch.from_numpy(config["tokens"]).to(data_dev)
+    _ops_counts()
+    for step in range(1, config["steps"] + 1):
+        state, loss = train_step(state, tokens)
+        train.report(dict(step=step, loss=float(loss),
+                          node=os.environ.get("RT_NODE_ID"),
+                          device=torch.cuda.get_device_name(dev),
+                          launches=_ops_counts(), t_cuda=t_cuda,
+                          t_step_end=time.time()))
+
+
+def _scale_node(rt, node_id):
+    return next((n for n in rt.nodes() if n["node_id"] == node_id), None)
+
+
+def _scale_wait(pred, timeout, what):
+    """Poll ``pred`` every 50 ms; its first truthy value."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        _check(time.monotonic() < deadline, f"scale: {what} in {timeout} s")
+        time.sleep(0.05)
+
+
+def _scale_worker(rt, addr, session_dir):
+    """(a): a num_gpus=1 task on a head with no GPU; the autoscaler's
+    ``SliceNodeProvider`` (``up``'s local provider) starts one GPU worker,
+    the task runs K1 there, and once idle the worker is drained and
+    terminated."""
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalingConfig,
+                                          SliceNodeProvider)
+
+    created = []
+
+    class Counted(SliceNodeProvider):
+        def create_node(self, resources):
+            handle = super().create_node(resources)
+            created.append(handle)
+            return handle
+
+    out = {}
+    before = {n["node_id"] for n in rt.nodes()}
+    scaler = Autoscaler(Counted(addr, session_dir), AutoscalingConfig(
+        min_workers=0, max_workers=1, worker_resources=SCALE_WORKER,
+        idle_timeout_s=SCALE_IDLE_S, poll_period_s=SCALE_POLL_S)).start()
+    try:
+        t0 = time.monotonic()
+        ref = rt.remote(num_gpus=1)(_scale_k1_task).remote(K1_MAIN_SHAPE,
+                                                           SEED)
+        node = _scale_wait(lambda: next(
+            (n for n in rt.nodes() if n["node_id"] not in before
+             and n["state"] == "ALIVE"), None), SCALE_WAIT_S,
+            "no worker came up for the GPU task")
+        out["submit_to_alive_s"] = time.monotonic() - t0
+        k1 = rt.get(ref, timeout=300)
+        t_idle = time.monotonic()
+        out["submit_to_result_s"] = t_idle - t0
+        # the drain (the node id in the autoscaler's draining set) comes
+        # before the termination empties the worker list
+        drained = _scale_wait(
+            lambda: list(scaler._draining) or (not scaler.workers and [None]),
+            SCALE_WAIT_S, "the idle worker was not drained")
+        out["idle_to_drain_s"] = time.monotonic() - t_idle
+        _scale_wait(lambda: not scaler.workers, SCALE_WAIT_S,
+                    "the drained worker was not terminated")
+        out["idle_to_terminated_s"] = time.monotonic() - t_idle
+        proc = created[0]["proc"] if created else None
+        exited = proc is not None and _scale_wait(
+            lambda: proc.poll() is not None, 30,
+            "the worker's daemon did not exit")
+        rec = _scale_wait(lambda: (lambda r: r if r and r["state"] == "DEAD"
+                                   else None)(_scale_node(rt, node["node_id"])),
+                          30, "the worker's node is not DEAD")
+        # a poll or two more: nothing relaunches for the finished task
+        time.sleep(3 * SCALE_POLL_S)
+        out.update(creates=len(created), node=node["node_id"],
+                   node_resources=node["resources"], k1_task=k1,
+                   drained=drained == [node["node_id"]],
+                   daemon_exited=bool(exited),
+                   death=rec["death"],
+                   launches=dict(k1=k1["launches"], k2=0, k3=0))
+    finally:
+        scaler.stop()
+    print(json.dumps({"scale_worker": out}, default=str), flush=True)
+    print(f"scale (a): submit to the worker ALIVE "
+          f"{out['submit_to_alive_s']:.2f} s, to the task's result "
+          f"{out['submit_to_result_s']:.2f} s; idle to drained "
+          f"{out['idle_to_drain_s']:.2f} s, to terminated "
+          f"{out['idle_to_terminated_s']:.2f} s (idle timeout "
+          f"{SCALE_IDLE_S} s)", flush=True)
+    _check(out["creates"] == 1, f"scale (a): {out['creates']} create_node")
+    _check(k1["node_id"] == node["node_id"],
+           f"scale (a): the task ran on {k1['node_id']}, the autoscaled "
+           f"worker is {node['node_id']}")
+    _check(k1["launches"] == 1 and k1["finite"] and k1["o_ok"]
+           and k1["err_lse"] <= TOL_LSE, f"scale (a): K1 in the task: {k1}")
+    _check(out["drained"] and out["daemon_exited"],
+           f"scale (a): drained {out['drained']}, daemon exited "
+           f"{out['daemon_exited']}")
+    death = out["death"] or {}
+    _check(death.get("expected") is True,
+           f"scale (a): the worker's death record {death}")
+    return out
+
+
+def _scale_domain(rt, dev, addr, session_dir):
+    """(b): a 1-worker ``TorchTrainer`` asking for an NVLink domain
+    (``topology="1x1"``) on a cluster with none; the autoscaler's
+    ``GpuVmNodeProvider`` on ``FakeGcpTransport`` provisions it, whose
+    boot starts one daemon a host as a VM's startup script would. The
+    in-process reference runs while the worker starts."""
+    import logging
+
+    import torch
+
+    from ray_tpu_torch._private import node as node_mod
+    from ray_tpu_torch._private.protocol import GPU_COORD_LABEL
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalingConfig,
+                                          SliceSpec)
+    from ray_tpu_torch.autoscaler.gcp import (FakeGcpTransport,
+                                              GpuVmNodeProvider)
+    from ray_tpu_torch.gpu.accelerator import model_of
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    pod = f"{model_of(torch.cuda.get_device_name(0))}-1"
+    if not pod.startswith("H100-"):
+        print(f"scale (b): the card's pod type is {pod}, not H100-1",
+              flush=True)
+    booted = {}  # instance name -> (daemon proc, node id, wall s registered)
+
+    def boot(name, kind, labels, metadata):
+        resources = json.loads(metadata["rt-resources"])
+        h = metadata["rt-host-index"]
+        if h == "0":
+            resources[f"GPU-{metadata['rt-pod-type']}-head"] = 1.0
+        proc, info = node_mod.start_node_daemon(
+            addr, session_dir, resources=resources,
+            labels={"gpu-domain-name": metadata["rt-slice-name"],
+                    "gpu-pod-type": metadata["rt-pod-type"],
+                    GPU_COORD_LABEL: f"0,{h}"})
+        booted[name] = (proc, info["node_id"], time.time())
+        return lambda: node_mod.kill_process(proc)
+
+    # the JAX package's GCP provider has no node_alive, so once the domain
+    # exists every reconcile raises AttributeError (ROADMAP Queue 3): count
+    # those records instead of printing each
+    failures = []
+
+    class _Count(logging.Handler):
+        def emit(self, record):
+            failures.append(record.getMessage()
+                            + (f": {record.exc_info[1]!r}"
+                               if record.exc_info else ""))
+
+    as_log = logging.getLogger("ray_tpu_torch.autoscaler")
+    counter = _Count(logging.ERROR)
+    as_log.addHandler(counter)
+    as_log.propagate = False
+    transport = FakeGcpTransport(boot=boot)
+    scaler = Autoscaler(
+        GpuVmNodeProvider(project="chip-smoke", zone="local",
+                          control_address=addr, transport=transport,
+                          cluster_name="scale"),
+        AutoscalingConfig(
+            min_workers=0, max_workers=0, idle_timeout_s=3600,
+            poll_period_s=SCALE_POLL_S,
+            slice_types={pod: SliceSpec(hosts=1,
+                                        resources_per_host=SCALE_DOMAIN)},
+            max_slices=1)).start()
+    out = {"pod_type": pod}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    try:
+        config = dict(cfg=SCALE_CFG, lr=TRAIN_LR, remat=TRAIN_REMAT,
+                      seed=SEED, tokens=_train_tokens_np(),
+                      steps=SCALE_STEPS)
+        trainer = TorchTrainer(
+            _scale_train_fn, train_loop_config=config,
+            scaling_config=ScalingConfig(
+                num_workers=1, use_gpu=True, topology="1x1",
+                accelerator_type=pod),
+            run_config=RunConfig(name="scale", storage_path=tmp))
+        box = {}
+        t_fit = time.time()
+        fit = threading.Thread(target=lambda: box.update(
+            result=trainer.fit()), daemon=True)
+        fit.start()
+        t = time.monotonic()
+        state, train_step, data_dev = _ops_model(SCALE_CFG, TRAIN_LR,
+                                                 TRAIN_REMAT, SEED, dev)
+        tokens = _train_tokens(data_dev)
+        reference = []
+        for _ in range(SCALE_STEPS):
+            state, loss = train_step(state, tokens)
+            reference.append(float(loss))
+        del state, tokens
+        _ops_counts()   # the reference's launches are not the path's
+        torch.cuda.empty_cache()
+        out["reference_s"] = time.monotonic() - t
+        fit.join(600)
+        _check(not fit.is_alive() and "result" in box,
+               "scale (b): fit did not return")
+        result = box["result"]
+        _check(result.error is None, f"scale (b): fit failed: {result.error}")
+        hist = [m for m in result.metrics_history if "loss" in m]
+        domain_nodes = [nid for _, nid, _ in booted.values()]
+        # the domain is ALIVE once its last daemon has registered
+        alive_at = max((at for _, _, at in booted.values()), default=None)
+        slices = [dict(s, nodes=[{k: v for k, v in n.items() if k != "proc"}
+                                 for n in s["nodes"]])
+                  for s in scaler.slices]
+        inserts = [u for m, u in transport.calls
+                   if m == "POST" and "/instances" in u]
+        out.update(
+            slices=slices, inserts=len(inserts),
+            instances=sorted(transport.instances),
+            domain_nodes=domain_nodes,
+            labels=[(_scale_node(rt, nid) or {}).get("labels")
+                    for nid in domain_nodes],
+            losses=[m["loss"] for m in hist], reference=reference,
+            steps=[m["step"] for m in hist],
+            nodes=sorted({m["node"] for m in hist}),
+            devices=sorted({m["device"] for m in hist}),
+            launches_per_step=[m["launches"] for m in hist],
+            launches={k: sum(m["launches"][k] for m in hist)
+                      for k in ("k1", "k2", "k3")},
+            fit_to_alive_s=(alive_at - t_fit) if alive_at else None,
+            fit_to_first_step_s=(hist[0]["t_step_end"] - t_fit
+                                 if hist else None),
+            fit_s=time.time() - t_fit)
+    finally:
+        t = time.monotonic()
+        scaler.stop()
+        gone = all(p.poll() is not None for p, _, _ in booted.values())
+        deadline = time.monotonic() + 30
+        while not gone and time.monotonic() < deadline:
+            time.sleep(0.05)
+            gone = all(p.poll() is not None for p, _, _ in booted.values())
+        out["stop_to_terminated_s"] = time.monotonic() - t
+        as_log.removeHandler(counter)
+        as_log.propagate = True
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(left_instances=sorted(transport.instances),
+               domain_daemons_exited=gone,
+               reconcile_failures=len(failures),
+               first_failure=failures[0] if failures else None)
+    print(json.dumps({"scale_domain": out}, default=str), flush=True)
+    print(f"scale (b): domain {pod} ALIVE {out['fit_to_alive_s']} s after "
+          f"fit(), first step {out['fit_to_first_step_s']:.2f} s after; "
+          f"stop() to no instance and no daemon "
+          f"{out['stop_to_terminated_s']:.2f} s; reference "
+          f"{out['reference_s']:.2f} s beside the start; "
+          f"{out['reconcile_failures']} reconciles failed after the domain "
+          f"came ({out['first_failure']})", flush=True)
+    L = SCALE_CFG["n_layers"]
+    _check(out["inserts"] == 1 and len(out["slices"]) == 1
+           and len(domain_nodes) == 1,
+           f"scale (b): {out['inserts']} inserts, slices {out['slices']}, "
+           f"domain nodes {domain_nodes}")
+    _check(out["steps"] == list(range(1, SCALE_STEPS + 1))
+           and out["nodes"] == domain_nodes,
+           f"scale (b): steps {out['steps']} on {out['nodes']}, the domain "
+           f"is {domain_nodes}")
+    _check(all(d == torch.cuda.get_device_name(0) for d in out["devices"]),
+           f"scale (b): the worker ran on {out['devices']}")
+    _check(all(c == dict(k1=2 * L, k2=L, k3=L)
+               for c in out["launches_per_step"]),
+           f"scale (b): launches a step {out['launches_per_step']}")
+    _check(out["losses"] == reference,
+           f"scale (b): losses {out['losses']} against {reference} in "
+           f"process (bitwise)")
+    _check(not out["left_instances"] and gone,
+           f"scale (b): after stop() instances {out['left_instances']}, "
+           f"domain daemons exited {gone}")
+    return out
+
+
+def phase_scale(dev):
+    """The autoscaler on the card (see the module docstring): (a) a GPU
+    worker for a GPU task, then (b) an NVLink domain for a trainer, on one
+    head with no GPU."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.monotonic()
+    # the head must have no GPU: the card comes only through the autoscaler
+    os.environ.pop("RT_GPU_AUTODETECT", None)
+    t = time.monotonic()
+    info = rt.init(num_cpus=SCALE_CPUS)
+    out = {"cluster_start_s": time.monotonic() - t}
+    from ray_tpu_torch._private.worker import global_context
+
+    system_pids = [p.pid for p in global_context().owned_processes]
+    session_dir = info["session_dir"]
+    try:
+        _check("GPU" not in rt.cluster_resources(),
+               f"scale: the head has a GPU: {rt.cluster_resources()}")
+        t = time.monotonic()
+        out["worker"] = _scale_worker(rt, info["address"], session_dir)
+        out["worker_s"] = time.monotonic() - t
+        t = time.monotonic()
+        out["domain"] = _scale_domain(rt, dev, info["address"], session_dir)
+        out["domain_s"] = time.monotonic() - t
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (_cluster_pids(session_dir, system_pids)
+           and time.monotonic() < deadline):
+        time.sleep(0.2)
+    left = _cluster_pids(session_dir, system_pids)
+    out["left_after_shutdown"] = left
+    out["launches"] = {k: out["worker"]["launches"][k]
+                       + out["domain"]["launches"][k]
+                       for k in ("k1", "k2", "k3")}
+    out["phase_s"] = time.monotonic() - t_phase
+    torch.cuda.empty_cache()
+    print(f"scale: phase {out['phase_s']:.1f} s (cluster "
+          f"{out['cluster_start_s']:.1f}, (a) {out['worker_s']:.1f}, (b) "
+          f"{out['domain_s']:.1f}); launches {out['launches']}", flush=True)
+    _check(not left, f"scale: processes left after shutdown: {left}")
+    return out
+
+
 def _path_launches(report, key):
-    """``key``'s launches in the trainer, stages, apps, data and ops phases'
-    runs (the train worker's steps, both pipelines' steps over their
-    stages, the apps' prefill worker and engines, the steps fed by a
+    """``key``'s launches in the trainer, stages, apps, data, ops and scale
+    phases' runs (the train worker's steps, both pipelines' steps over
+    their stages, the apps' prefill worker and engines, the steps fed by a
     Dataset, the ops phase's profiled step, tune trials, GPU job and
-    preempted trainer)."""
+    preempted trainer, the autoscaled worker's task and the autoscaled
+    domain's trainer)."""
     return sum(report[p]["launches"].get(key, 0)
-               for p in ("trainer", "stages", "apps", "data", "ops")
+               for p in ("trainer", "stages", "apps", "data", "ops", "scale")
                if p in report)
 
 
@@ -6170,7 +6554,7 @@ def kernels_line(report):
     launches of that path's run (K1: the serve phase; K2/K3: the train
     phase's timed steps; K4, K5a, K5b: the ring phase's timed training
     steps, over its 4 ranks), K1-K3 with the launches of the trainer,
-    stages, apps, data and ops phases added (``_path_launches``)."""
+    stages, apps, data, ops and scale phases added (``_path_launches``)."""
     line = []
     if "k1" in report and "serve" in report:
         row = next(r for r in report["k1"] if r["causal"] and (
@@ -6257,7 +6641,8 @@ def _timed(record, name, fn, *args):
 
 PHASES = ("k1", "k23", "k4", "k5", "route", "forward", "serve", "train",
           "ring", "shard", "pipe", "vit", "moe", "ckpt", "rl", "runtime",
-          "trainer", "stages", "apps", "data", "algos", "collective", "ops")
+          "trainer", "stages", "apps", "data", "algos", "collective", "ops",
+          "scale")
 
 
 def main(argv=None) -> int:
@@ -6397,6 +6782,9 @@ def _run_phases(phases, dev, card, report, phase_s):
     if "ops" in phases:
         torch.cuda.empty_cache()
         report["ops"] = _timed(phase_s, "ops", phase_ops, dev, card)
+    if "scale" in phases:
+        torch.cuda.empty_cache()
+        report["scale"] = _timed(phase_s, "scale", phase_scale, dev)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ not the JAX package's file, so neither CLI stops the other's nodes.
 
 `start` gives a node `--num-gpus` CUDA devices as its "GPU" resource; without
 it the node daemon detects them when RT_GPU_AUTODETECT is set. `job submit
---resources '{"GPU": 1}'` leases the job a card. `up` and `down` wait for
-the port's autoscaler/ (ROADMAP Queue 1, R7) and exit with status 2.
+--resources '{"GPU": 1}'` leases the job a card. `up cluster.yaml` starts a
+head and the autoscaler (``autoscaler/launcher.py``), which brings GPU
+workers and NVLink domains up and down with demand; `down` tears it down.
 """
 
 from __future__ import annotations
@@ -211,26 +212,93 @@ def cmd_serve(args) -> int:
     return 0
 
 
-_NOT_PORTED = {
-    "up": "autoscaler/ (ROADMAP Queue 1, R7)",
-    "down": "autoscaler/ (ROADMAP Queue 1, R7)",
-}
+def cmd_up(args) -> int:
+    """Config-driven cluster launch (reference: `ray up`,
+    autoscaler/_private/commands.py). Blocks hosting the autoscaler loop —
+    the reconciler AND the provisioned-resource handles live in this
+    process, so exiting it must (and does) tear the cluster down: Ctrl-C
+    or a `down` from another shell (which SIGTERMs this pid) both run the
+    full shutdown, terminating autoscaler-launched workers/domains too."""
+    from ray_tpu_torch.autoscaler.launcher import (cluster_up,
+                                                   load_cluster_config,
+                                                   save_launch_state)
+
+    cfg = load_cluster_config(args.config)
+    cluster = cluster_up(cfg)
+    state = _load_state()
+    nodes = state.get("nodes", [])
+    entry = {"pids": [p.pid for p in cluster.head_procs],
+             "session_dir": cluster.session_dir,
+             "address": cluster.control_address, "head": True,
+             "up_pid": os.getpid()}
+    nodes.append(entry)
+    _save_state({"address": cluster.control_address, "nodes": nodes})
+    if args.state_file:
+        save_launch_state(cluster, args.state_file)
+    print(f"cluster {cfg['cluster_name']} up")
+    print(f"  address: {cluster.control_address}")
+    print(f"  connect: ray_tpu_torch.init(address="
+          f"{cluster.control_address!r})")
+    print("  stop:    Ctrl-C here, or `down` from another shell", flush=True)
+
+    def _teardown():
+        print("shutting down cluster")
+        cluster.shutdown()  # terminates provisioned workers/domains too
+        state = _load_state()
+        remaining = [n for n in state.get("nodes", [])
+                     if n.get("up_pid") != os.getpid()]
+        if remaining:
+            _save_state({"address": remaining[-1]["address"],
+                         "nodes": remaining})
+        else:
+            try:
+                os.unlink(STATE_FILE)
+            except OSError:
+                pass
+
+    def _on_sigterm(_sig, _frame):
+        _teardown()
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        while True:
+            time.sleep(5)
+    except KeyboardInterrupt:
+        _teardown()
+        return 0
 
 
-def cmd_not_ported(args) -> int:
-    print(f"`{args.cmd}` needs the port's {_NOT_PORTED[args.cmd]}, which "
-          "it does not have yet", file=sys.stderr)
-    return 2
+def cmd_down(args) -> int:
+    """Tear down clusters: `up` processes get SIGTERM (their handler runs
+    the full shutdown incl. provisioned cloud resources), `start` nodes'
+    process groups are killed directly (reference: `ray down`)."""
+    state = _load_state()
+    for node in state.get("nodes", []):
+        pid = node.get("up_pid")
+        if pid:
+            try:
+                os.kill(pid, signal.SIGTERM)
+                print(f"signalled `up` process {pid} to tear down")
+            except (ProcessLookupError, PermissionError):
+                pass
+    time.sleep(2)  # give the up processes their clean shutdown window
+    return cmd_stop(args)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ray_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    for name in ("up", "down"):
-        sp = sub.add_parser(name, help=f"not ported: {_NOT_PORTED[name]}")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
-        sp.set_defaults(fn=cmd_not_ported)
+    sp = sub.add_parser(
+        "up", help="launch a cluster from a YAML config (head + autoscaler; "
+                   "blocks — Ctrl-C or `down` tears it down)")
+    sp.add_argument("config")
+    sp.add_argument("--state-file", default="")
+    sp.set_defaults(fn=cmd_up)
+
+    sp = sub.add_parser("down", help="tear down a cluster started by `up`")
+    sp.set_defaults(fn=cmd_down)
 
     sp = sub.add_parser("start", help="start a head or worker node")
     sp.add_argument("--head", action="store_true")

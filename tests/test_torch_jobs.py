@@ -1,11 +1,9 @@
-"""The port's job plane (``ray_tpu_torch/job_submission``) against 10 of
-the 11 cases of the JAX package's ``test_jobs.py``: the lifecycle,
-tenancy and quotas, the fair-share queue, adoption after a manager
-restart, the job table across a control-store failover, and the
-supervisor-death cases.
-``test_jobs.py::test_node_kill_mid_fleet_autoscaler_converges`` waits for
-the port's autoscaler (ROADMAP Queue 1, R7). The runtime imports no
-torch, so these run in the pytest worker.
+"""The port's job plane (``ray_tpu_torch/job_submission``) against the 11
+cases of the JAX package's ``test_jobs.py``: the lifecycle, tenancy and
+quotas, the fair-share queue, adoption after a manager restart, the job
+table across a control-store failover, the supervisor-death cases, and a
+node killed under a job on an autoscaled fleet (the port's autoscaler).
+The runtime imports no torch, so these run in the pytest worker.
 """
 
 import asyncio
@@ -357,3 +355,41 @@ def test_supervisor_death_resubmits_under_max_retries(client):
     info = client.get_job_info(sid)
     assert info["retries_used"] == 1
     assert info["max_retries"] == 1
+
+
+def test_node_kill_mid_fleet_autoscaler_converges(client, cluster):
+    """The job's supervisor is pinned (custom resource) to an
+    autoscaler-launched node; kill -9 that node mid-run. The job must land
+    FAILED with a surfaced cause, the tenant's quota must free, and the
+    autoscaler must converge back to zero workers."""
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalingConfig,
+                                          LocalNodeProvider)
+
+    provider = LocalNodeProvider(cluster["address"], cluster["session_dir"])
+    scaler = Autoscaler(provider, AutoscalingConfig(
+        min_workers=0, max_workers=1,
+        worker_resources={"CPU": 2.0, "jobnode": 4.0},
+        idle_timeout_s=2.0, poll_period_s=0.3,
+    )).start()
+    try:
+        client.set_tenant("chaos", max_running=4)
+        sid = client.submit_job(
+            entrypoint=_sleep(300), tenant="chaos",
+            resources={"CPU": 1.0, "jobnode": 1.0})
+        # supervisor infeasible on the head -> autoscaler provisions the
+        # jobnode worker -> the job starts there
+        assert _wait_status(client, sid, (RUNNING,), 120) == RUNNING
+        assert len(scaler.workers) == 1
+        victim = scaler.workers[0]
+        node_mod.kill_process(victim["proc"], force=True)
+        assert _wait_status(client, sid, (FAILED,), 90) == FAILED
+        assert client.fair_share_stats()["chaos"]["running"] == 0
+        # convergence back down: dead worker pruned, nothing relaunched
+        deadline = time.time() + 60
+        while time.time() < deadline and scaler.workers:
+            time.sleep(0.5)
+        assert scaler.workers == [], "autoscaler never converged down"
+        alive = [n for n in rt.nodes() if n["state"] == "ALIVE"]
+        assert len(alive) == 1  # only the head remains
+    finally:
+        scaler.stop()

@@ -6,8 +6,9 @@ plane (its in-stream gap reconcile, real placement skipping simnodes, a
 plane's convergence, drain and leases, ``add_sim_nodes`` of 8 nodes); the
 CLI cases drive ``start``, ``status``, ``serve deploy``, ``serve status``,
 ``job submit``, ``job status``, ``job logs``, ``job stop``, ``job list``
-and ``stop`` in subprocesses, and ``up`` and ``down``, which wait for the
-port's autoscaler. Nothing here imports torch.
+and ``stop`` in subprocesses, then ``up`` of a YAML whose GPU worker the
+autoscaler starts for a GPU task, and ``down``. Nothing here imports
+torch.
 """
 
 import asyncio
@@ -360,10 +361,99 @@ def test_cli_stop_ends_the_cluster(cli):
     assert st.returncode == 2 and "no running cluster" in st.stderr
 
 
-@pytest.mark.parametrize("cmd,needs", [
-    (["up", "cluster.yaml"], "autoscaler/"),
-    (["down"], "autoscaler/")], ids=["up", "down"])
-def test_cli_refuses_what_is_not_ported(cmd, needs):
-    out = _cli(dict(os.environ), *cmd, timeout=60)
-    assert out.returncode == 2
-    assert needs in out.stderr and "ROADMAP" in out.stderr
+_UP_DRIVER = """
+import json, os, sys
+import ray_tpu_torch as rt
+
+rt.init(address=sys.argv[1])
+
+@rt.remote(num_gpus=1)
+def where():
+    return os.environ["RT_NODE_ID"]
+
+node = rt.get(where.remote(), timeout=120)
+print(json.dumps({"node": node, "nodes": rt.nodes()}))
+rt.shutdown()
+"""
+
+
+def _session_pids(session_dir):
+    """Pids whose command line or environment names ``session_dir``."""
+    key = session_dir.encode()
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{d}/environ", "rb") as f:
+                env = f.read()
+        except OSError:
+            continue
+        if cmd and (key in cmd or key in env):
+            pids.append(int(d))
+    return pids
+
+
+def test_cli_up_down(tmp_path):
+    """`up` a YAML with the local provider and a GPU worker type: a
+    num_gpus=1 task on the head (which has no GPU) makes the autoscaler
+    start a worker, where it runs; `down` ends the `up` process, which
+    tears down the head and the worker: no process of the cluster left."""
+    import yaml
+
+    cfg = tmp_path / "cluster.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "cluster_name": "cli-up",
+        "provider": {"type": "local"},
+        "head": {"resources": {"CPU": 2}},
+        "workers": {"resources": {"CPU": 1, "GPU": 1}, "min_workers": 0,
+                    "max_workers": 1, "idle_timeout_s": 60},
+    }))
+    env = dict(os.environ, TMPDIR=str(tmp_path), PYTHONPATH=ROOT)
+    state_file = tmp_path / "ray_tpu_sessions" / "torch_cluster_state.json"
+    up = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts", "up", str(cfg)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    session = None
+    try:
+        deadline = time.monotonic() + 60
+        while not state_file.exists():
+            assert up.poll() is None, up.stdout.read()
+            assert time.monotonic() < deadline, "up never wrote its state"
+            time.sleep(0.2)
+        state = json.loads(state_file.read_text())
+        (entry,) = state["nodes"]
+        assert entry["up_pid"] == up.pid and entry["head"]
+        session = entry["session_dir"]
+        out = subprocess.run(
+            [sys.executable, "-c", _UP_DRIVER, state["address"]],
+            capture_output=True, text=True, timeout=180, env=env, cwd=ROOT)
+        assert out.returncode == 0, out.stdout + out.stderr
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        by_id = {n["node_id"]: n for n in got["nodes"]}
+        assert len(by_id) == 2, got["nodes"]
+        assert by_id[got["node"]]["resources"].get("GPU") == 1.0
+        assert all("GPU" not in n["resources"] for i, n in by_id.items()
+                   if i != got["node"])
+        down = _cli(env, "down", timeout=60)
+        assert down.returncode == 0, down.stderr
+        assert f"signalled `up` process {up.pid}" in down.stdout
+        assert up.wait(timeout=60) == 0
+        assert "shutting down cluster" in up.stdout.read()
+        assert not state_file.exists()
+        deadline = time.monotonic() + 30
+        while _session_pids(session) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        assert _session_pids(session) == []
+    finally:
+        if up.poll() is None:
+            up.kill()
+            up.wait()
+        for pid in _session_pids(session) if session else ():
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
