@@ -144,7 +144,13 @@ runs twenty-four phases and fails (exit 1) if any check fails:
             then runs; a 256 MiB
             bf16 CUDA tensor put by the driver is read by a num_gpus=1 task
             bitwise (GB/s host-staged, with the stages of put and get
-            timed apart); after shutdown no process of this cluster (its
+            timed apart); the dashboard (``start_dashboard(port=0)`` on
+            this cluster): while the engine serves, ``/metrics`` scraped
+            shows the actor engine's ``rt_llm_kv_blocks_in_use`` and
+            ``rt_llm_batch_occupancy`` above 0; every ``/api`` route the
+            page fetches answers JSON; ``/api/jax_profile`` on the node
+            returns chrome traces (``traceEvents``), each route's seconds
+            printed; after shutdown no process of this cluster (its
             session) is left.
 * trainer — ``TorchTrainer`` (``ray_tpu_torch.train``) on the port's
             cluster (``init(num_cpus=4)``, the GPU detected): one
@@ -264,7 +270,12 @@ runs twenty-four phases and fails (exit 1) if any check fails:
             on the CPU after one epoch, seeds 0-2). Printed: ms an
             iteration, learner ms an update, env steps/s, samples/s.
             PPO and DQN on CartPole wait for gymnasium on the card's
-            machine (not installed there).
+            machine (not installed there). A heartbeat watch runs beside
+            it (``_BeatWatch``: the node's last beat as the store stamped
+            it, both loops' round trips, the daemon's /proc reads, the
+            host's scheduling; a beat 3 s late dumps the daemon's and the
+            store's stacks), printed, not gated: the phase fails anyway if
+            the node's health check times out.
 
 * collective — the device object plane and the collective groups
             (``ray_tpu_torch.util.collective``, ``experimental/rdt.py``,
@@ -346,12 +357,17 @@ runs twenty-four phases and fails (exit 1) if any check fails:
             accelerator_type=...)``: its domain reservation is the demand.
             The worker takes 2 steps of the trainer phase's cell (the
             flagship at 4 of 16 layers, full width) while this process
-            computes them. Gates: one insert and one domain; the steps on
-            the domain's node, K1/K2/K3 8/4/4 a step; every loss bitwise
-            the in-process one; after ``scaler.stop()`` no instance and no
-            daemon of the domain. Printed: submit to ALIVE, to the task's
-            result, idle to terminated; fit to the domain ALIVE, to the
-            first step; stop to terminated. No process of the cluster is
+            computes them. The boot labels each daemon with its instance
+            name (``gcp.INSTANCE_LABEL``), by which the autoscaler matches
+            it to its handle. Gates: one insert and one domain; the steps
+            on the domain's node, K1/K2/K3 8/4/4 a step; every loss bitwise
+            the in-process one; no reconcile failed; once the trainer is
+            done the idle domain is drained and terminated (the idle
+            timeout of (a)) before ``scaler.stop()``: no instance and no
+            daemon of the domain, each host's death record expected.
+            Printed: submit to ALIVE, to the task's result, idle to
+            terminated; fit to the domain ALIVE, to the first step; idle
+            to drained and to terminated. No process of the cluster is
             left after ``shutdown()``.
 
 The line before the last is the ``kernels`` JSON record, the last line
@@ -365,6 +381,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3349,6 +3366,80 @@ def _gauges_through_plane(rt):
     return out
 
 
+RUNTIME_CAPTURE_S = 1.0    # the dashboard's /api/jax_profile duration
+RUNTIME_SCRAPED = ("rt_llm_kv_blocks_in_use", "rt_llm_batch_occupancy")
+
+
+def _http_get(url, timeout=120.0):
+    """(status, body bytes) of a GET; an HTTP error's status and body too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _scrape_gauges(url, names) -> dict:
+    """The largest sample of each of ``names`` in the dashboard's
+    ``/metrics`` (any labels), and the scrape's seconds under ``_s``."""
+    t = time.monotonic()
+    status, body = _http_get(f"{url}/metrics", timeout=30)
+    out = {"_s": time.monotonic() - t, "_status": status}
+    for line in body.decode().splitlines():
+        name, _, value = line.partition(" ")
+        name = name.split("{", 1)[0]
+        if name in names:
+            out[name] = max(out.get(name, 0.0), float(value.split()[0]))
+    return out
+
+
+def _runtime_routes(url):
+    """Every ``/api`` route the dashboard's page fetches: status, JSON,
+    seconds."""
+    import re
+
+    t = time.monotonic()
+    status, page = _http_get(f"{url}/")
+    routes = {"/": dict(status=status, s=time.monotonic() - t)}
+    for path in sorted(set(re.findall(r'get\("([^"]+)"\)', page.decode()))):
+        t = time.monotonic()
+        status, body = _http_get(f"{url}/api/{path}")
+        row = dict(status=status, s=time.monotonic() - t, bytes=len(body))
+        try:
+            json.loads(body)
+            row["json"] = True
+        except ValueError:
+            row["json"] = False
+        routes[f"/api/{path}"] = row
+    return routes
+
+
+def _runtime_capture(url, node):
+    """One ``/api/jax_profile`` capture on ``node``: its seconds, files,
+    and the events of each chrome trace."""
+    t = time.monotonic()
+    status, body = _http_get(f"{url}/api/jax_profile?node={node}"
+                             f"&duration={RUNTIME_CAPTURE_S}")
+    capture = dict(status=status, s=time.monotonic() - t)
+    if status == 200:
+        got = json.loads(body)
+        capture.update(node=got["node"], files=got["files"], events=[])
+        for path in got["files"]:
+            try:
+                with open(path) as f:
+                    events = json.load(f).get("traceEvents")
+                capture["events"].append(
+                    len(events) if isinstance(events, list) else None)
+            except (OSError, ValueError):
+                capture["events"].append(None)
+    else:
+        capture["error"] = body.decode()[:2000]
+    return capture
+
+
 def phase_runtime(dev, inproc=None):
     """The port's own runtime on the card (see the module docstring);
     ``inproc``: the serve phase's numbers, printed beside the actor's."""
@@ -3358,6 +3449,7 @@ def phase_runtime(dev, inproc=None):
     import torch
 
     import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
     from ray_tpu_torch.gpu.accelerator import GpuAcceleratorManager
     from ray_tpu_torch.util.metrics import reset_registry
 
@@ -3389,6 +3481,16 @@ def phase_runtime(dev, inproc=None):
                f"{torch.cuda.device_count()} devices")
         _check(labels.get("gpu-name") == torch.cuda.get_device_name(0),
                f"runtime: node labels {labels} lack the card's name")
+        t = time.monotonic()
+        dash_url = start_dashboard(port=0)
+        dash = out["dashboard"] = dict(url=dash_url,
+                                       start_s=time.monotonic() - t)
+        # a capture on the node runs beside the rest of the phase (a
+        # worker's start and torch's import are most of it)
+        capture = threading.Thread(target=lambda: dash.update(
+            capture=_runtime_capture(dash_url, rt.nodes()[0]["node_id"])),
+            daemon=True)
+        capture.start()
 
         # one K1 call in a GPU task
         task = rt.remote(num_gpus=1)(_runtime_k1_task)
@@ -3420,7 +3522,7 @@ def phase_runtime(dev, inproc=None):
             rt.get(ref, timeout=120)
         base = rt.get(host.zero_launches.remote(), timeout=60)
         submit, stamps, toks = {}, {}, {}
-        peak = {}
+        peak, scraped, scrape_s = {}, {}, []
         stop, first = threading.Event(), threading.Event()
 
         def poll():
@@ -3428,6 +3530,11 @@ def phase_runtime(dev, inproc=None):
                 for g in _gauges_through_plane(rt).values():
                     for k, v in g.items():
                         peak[k] = max(peak.get(k, 0.0), v)
+                got = _scrape_gauges(dash_url, RUNTIME_SCRAPED)
+                scrape_s.append(got.pop("_s"))
+                if got.pop("_status") == 200:
+                    for k, v in got.items():
+                        scraped[k] = max(scraped.get(k, 0.0), v)
                 stop.wait(RUNTIME_FLUSH_S / 2)
 
         def one(i):
@@ -3504,6 +3611,24 @@ def phase_runtime(dev, inproc=None):
                and peak.get("rt_llm_kv_blocks_in_use", 0) > 0,
                f"runtime: the plane never showed a busy engine: {peak}")
 
+        # the dashboard on this cluster: its scrape while the engine served,
+        # the page's routes
+        dash.update(scraped_peak=scraped, scrapes=len(scrape_s),
+                    scrape_s_p50=sorted(scrape_s)[len(scrape_s) // 2],
+                    scrape_s_max=max(scrape_s),
+                    routes=_runtime_routes(dash_url))
+        print(f"runtime: dashboard up {dash['start_s']:.2f} s; /metrics "
+              f"{dash['scrapes']} scrapes while serving, p50 "
+              f"{dash['scrape_s_p50']:.4f} s, peak {scraped}; routes "
+              + ", ".join(f"{p} {r['s']:.4f} s"
+                          for p, r in dash["routes"].items()), flush=True)
+        _check(all(scraped.get(k, 0) > 0 for k in RUNTIME_SCRAPED),
+               f"runtime: the dashboard's /metrics never showed a busy "
+               f"engine: {scraped}")
+        _check(all(r["status"] == 200 and r.get("json", True)
+                   for r in dash["routes"].values()),
+               f"runtime: dashboard routes {dash['routes']}")
+
         # no CUDA context, and no torch, in the daemon or the control store:
         # neither is in nvidia-smi's list (in a container it may list no
         # real pid) nor maps libcuda or libtorch, which the actor does
@@ -3575,6 +3700,19 @@ def phase_runtime(dev, inproc=None):
                and got["shape"] == list(RUNTIME_TENSOR_SHAPE),
                f"runtime: the CUDA tensor came back different: {got}")
         del x, ref
+
+        capture.join(300)
+        t = time.monotonic()
+        stop_dashboard()
+        dash["stop_s"] = time.monotonic() - t
+        print(json.dumps({"runtime_dashboard": dash}), flush=True)
+        cap = dash.get("capture") or {"status": None, "s": float("nan")}
+        print(f"runtime: /api/jax_profile {cap['s']:.2f} s "
+              f"({RUNTIME_CAPTURE_S} s capture, beside the rest of the "
+              f"phase), {len(cap.get('files', []))} trace(s)", flush=True)
+        _check(cap["status"] == 200 and cap.get("files")
+               and all(n is not None for n in cap["events"]),
+               f"runtime: /api/jax_profile {cap}")
     finally:
         rt.shutdown()
         os.environ.pop("RT_GPU_AUTODETECT", None)
@@ -5116,6 +5254,214 @@ def _algos_offline(dev, kind):
         agreement=float((acts == bits).mean()))
 
 
+# the algos phase's heartbeat watch (a node's health check once timed out
+# there: 10 s without a beat, on a slower host)
+WATCH_PERIOD_S = 0.2
+WATCH_LATE_S = 3.0         # a beat this late (3 periods) takes stacks
+WATCH_DUMPS = 3
+_STACKS_HOOK = """\
+import faulthandler, os, signal
+_d = os.environ.get("CHIP_SMOKE_STACKS")
+if _d:
+    _f = open(os.path.join(_d, "%d.stacks" % os.getpid()), "a")
+    faulthandler.register(signal.SIGUSR1, file=_f, all_threads=True)
+    open(os.path.join(_d, "%d.ready" % os.getpid()), "w").close()
+"""
+
+
+def _proc_stat(pid):
+    """(state, CPU seconds) of ``pid`` from /proc, (None, None) if gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None, None
+    tick = os.sysconf("SC_CLK_TCK")
+    return fields[0], (int(fields[11]) + int(fields[12])) / tick
+
+
+def _host_cpu():
+    """(busy, total) jiffies of all CPUs, and the runnable tasks, from
+    /proc/stat."""
+    busy = total = running = 0
+    with open("/proc/stat") as f:
+        for line in f:
+            if line.startswith("cpu "):
+                v = [int(x) for x in line.split()[1:]]
+                total = sum(v[:8])
+                busy = total - v[3] - v[4]   # less idle and iowait
+            elif line.startswith("procs_running"):
+                running = int(line.split()[1])
+    return busy, total, running
+
+
+def _threads(pid):
+    """Each thread of ``pid``: its name, state and kernel wait channel."""
+    out = []
+    try:
+        tids = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tids:
+        row = {"tid": int(tid)}
+        for key, name in (("comm", "comm"), ("wchan", "wchan")):
+            try:
+                with open(f"/proc/{pid}/task/{tid}/{name}") as f:
+                    row[key] = f.read().strip()
+            except OSError:
+                pass
+        row["state"] = _proc_stat(f"{pid}/task/{tid}")[0]
+        out.append(row)
+    return out
+
+
+class _BeatWatch:
+    """Watches the node's heartbeats from a thread of this process while
+    the algos phase runs. Every WATCH_PERIOD_S: the age of the node's last
+    beat as the control store stamped it (``get_node_stats``' ``ts``), the
+    round trips of that call (the store's loop) and of ``list_workers`` to
+    the node daemon (the daemon's loop), the slowest read of a listed
+    worker's ``/proc/<pid>/statm`` (what the daemon's ``_node_stats`` reads
+    on its loop each beat), how late this thread's own sleep
+    woke (the host's scheduler), the load average, and the CPU seconds of
+    the daemon and the store. A beat WATCH_LATE_S late takes, up to
+    WATCH_DUMPS times, both processes' Python stacks (SIGUSR1 to the
+    faulthandler ``_STACKS_HOOK`` registered at their start) and their
+    threads' states and wait channels."""
+
+    def __init__(self, rt, pids, stacks_dir):
+        from ray_tpu_torch.runtime.rpc import RpcClient
+
+        self.rt, self.pids, self.dir = rt, pids, stacks_dir
+        self.cw = rt.get_core_worker()
+        self.node = rt.nodes()[0]
+        address = self.node["address"]
+
+        async def connect():
+            c = RpcClient(address, name="chip_smoke->daemon")
+            await c.connect()
+            return c
+
+        self.daemon = self.cw.run_sync(connect(), 30)
+        self.samples, self.dumps, self.errors = [], [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="beat-watch")
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    async def _timed(self, call):
+        t = time.monotonic()
+        reply = await call
+        return reply, time.monotonic() - t
+
+    def _sample(self):
+        node = self.node["node_id"]
+        t = time.monotonic()
+        stats, store_rtt = self.cw.run_sync(self._timed(
+            self.cw.control.call("get_node_stats", {})), 30)
+        workers, daemon_rtt = self.cw.run_sync(self._timed(
+            self.daemon.call("list_workers", {}, timeout=30)), 35)
+        # the reads the daemon's _node_stats makes on its loop every beat
+        # (psutil's memory_info: /proc/<pid>/statm of each worker)
+        statm = 0.0
+        for w in workers["workers"]:
+            t0 = time.monotonic()
+            try:
+                with open(f"/proc/{w['pid']}/statm") as f:
+                    f.read()
+            except OSError:
+                pass
+            statm = max(statm, time.monotonic() - t0)
+        row = stats["stats"].get(node) or {}
+        with open("/proc/loadavg") as f:
+            load = float(f.read().split()[0])
+        cpu = {k: _proc_stat(p)[1] for k, p in self.pids.items()}
+        busy, total, running = _host_cpu()
+        return dict(t=t, beat_age_s=time.time() - row.get("ts", 0.0),
+                    store_rtt_s=store_rtt, daemon_rtt_s=daemon_rtt,
+                    statm_s=statm, workers=len(workers["workers"]),
+                    call_s=time.monotonic() - t, load1=load, cpu_s=cpu,
+                    host_busy=busy, host_total=total, runnable=running)
+
+    def _dump(self, why):
+        marks = {k: os.path.exists(os.path.join(self.dir, f"{p}.ready"))
+                 for k, p in self.pids.items()}
+        dump = dict(why=why, threads={k: _threads(p)
+                                      for k, p in self.pids.items()},
+                    hooked=marks)
+        for k, p in self.pids.items():
+            if marks[k]:  # SIGUSR1 ends a process that did not register it
+                os.kill(p, signal.SIGUSR1)
+        time.sleep(0.5)
+        for k, p in self.pids.items():
+            try:
+                with open(os.path.join(self.dir, f"{p}.stacks")) as f:
+                    dump[f"{k}_stacks"] = f.read()[-20000:]
+            except OSError:
+                pass
+        self.dumps.append(dump)
+
+    def _run(self):
+        last = time.monotonic()
+        while not self._stop.wait(WATCH_PERIOD_S):
+            woke = time.monotonic()
+            try:
+                row = self._sample()
+            except Exception as e:  # noqa: BLE001 — recorded, then go on
+                self.errors.append(f"{time.monotonic():.3f}: {e!r}")
+                row = None
+            if row is not None:
+                row["oversleep_s"] = woke - last - WATCH_PERIOD_S
+                self.samples.append(row)
+                late = max(row["beat_age_s"], row["store_rtt_s"],
+                           row["daemon_rtt_s"])
+                if late >= WATCH_LATE_S and len(self.dumps) < WATCH_DUMPS:
+                    self._dump(row)
+            last = time.monotonic()
+
+    def stop(self) -> dict:
+        """Ends the watch: the summary (maxima, CPU shares, dumps)."""
+        self._stop.set()
+        self._thread.join(30)
+        try:
+            self.cw.run_sync(self.daemon.close(), 10)
+        except Exception:  # noqa: BLE001 — the cluster may be gone
+            pass
+        rows = self.samples
+        if not rows:
+            return dict(samples=0, errors=self.errors[-5:])
+        span = rows[-1]["t"] - rows[0]["t"] or 1.0
+        share = {k: ((rows[-1]["cpu_s"][k] or 0.0)
+                     - (rows[0]["cpu_s"][k] or 0.0)) / span
+                 for k in self.pids}
+        worst = max(rows, key=lambda r: r["beat_age_s"])
+        # the host's CPUs busy between consecutive samples (all CPUs = 1)
+        busy = [(b["host_busy"] - a["host_busy"])
+                / max(1, b["host_total"] - a["host_total"])
+                for a, b in zip(rows, rows[1:])]
+        return dict(
+            samples=len(rows), seconds=span,
+            beat_age_max_s=worst["beat_age_s"],
+            store_rtt_max_s=max(r["store_rtt_s"] for r in rows),
+            daemon_rtt_max_s=max(r["daemon_rtt_s"] for r in rows),
+            statm_max_s=max(r["statm_s"] for r in rows),
+            workers_max=max(r["workers"] for r in rows),
+            oversleep_max_s=max(r["oversleep_s"] for r in rows),
+            load1_max=max(r["load1"] for r in rows),
+            host_busy_mean=((rows[-1]["host_busy"] - rows[0]["host_busy"])
+                            / max(1, rows[-1]["host_total"]
+                                  - rows[0]["host_total"])),
+            host_busy_max=max(busy, default=None),
+            runnable_max=max(r["runnable"] for r in rows),
+            cpu_share=share, cpus=os.cpu_count(),
+            cpus_usable=len(os.sched_getaffinity(0)),
+            late=sum(1 for r in rows if r["beat_age_s"] >= WATCH_LATE_S),
+            worst=worst, dumps=self.dumps, errors=self.errors[-5:])
+
+
 def phase_algos(dev, card=""):
     """The rllib algorithms on the port's cluster: env runners as actors on
     the CPU, learners on the card (see the module docstring); ``card``,
@@ -5128,12 +5474,34 @@ def phase_algos(dev, card=""):
     _check(not torch.backends.cuda.matmul.allow_tf32,
            "algos: TF32 products are on; the learners compute in fp32")
     out = {"card": card}
+    # the control store and the daemon start with _STACKS_HOOK, which lets
+    # the heartbeat watch take their stacks
+    stacks = tempfile.mkdtemp(prefix="chip_smoke_stacks_")
+    with open(os.path.join(stacks, "sitecustomize.py"), "w") as f:
+        f.write(_STACKS_HOOK)
+    env_before = {k: os.environ.get(k)
+                  for k in ("PYTHONPATH", "CHIP_SMOKE_STACKS")}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [stacks, os.path.dirname(os.path.abspath(__file__))]
+        + ([env_before["PYTHONPATH"]] if env_before["PYTHONPATH"] else []))
+    os.environ["CHIP_SMOKE_STACKS"] = stacks
     t0 = time.monotonic()
-    rt.init(num_cpus=ALGOS_CPUS)
-    out["cluster_start_s"] = time.monotonic() - t0
-    system_pids = [p.pid for p in global_context().owned_processes]
-    session_dir = global_context().session_dir
     try:
+        rt.init(num_cpus=ALGOS_CPUS)
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["cluster_start_s"] = time.monotonic() - t0
+    owned = global_context().owned_processes
+    system_pids = [p.pid for p in owned]
+    session_dir = global_context().session_dir
+    watch = None
+    try:
+        watch = _BeatWatch(rt, {"control_store": owned[0].pid,
+                                "daemon": owned[-1].pid}, stacks).start()
         for mapping in ALGOS_MAPPINGS:
             row = _algos_multi_agent(dev, mapping, session_dir,
                                      system_pids)
@@ -5154,7 +5522,27 @@ def phase_algos(dev, card=""):
                   f"samples/s, greedy == expert on "
                   f"{row['agreement']:.3f} of {ALGOS_HELD_OUT}", flush=True)
     finally:
+        if watch is not None:
+            beats = out["beats"] = watch.stop()
+            print(json.dumps({"algos_beats": beats}, default=str),
+                  flush=True)
+            if beats["samples"]:
+                print(f"algos ({card}): heartbeats: the store's last beat "
+                      f"at most {beats['beat_age_max_s']:.2f} s old, round "
+                      f"trips store {beats['store_rtt_max_s']:.3f} s, "
+                      f"daemon {beats['daemon_rtt_max_s']:.3f} s; a "
+                      f"worker's /proc statm read {beats['statm_max_s']:.4f}"
+                      f" s at most ({beats['workers_max']} workers); this "
+                      f"process overslept {beats['oversleep_max_s']:.3f} s "
+                      f"at most; load {beats['load1_max']:.1f}, host CPUs "
+                      f"busy {beats['host_busy_mean']:.2f} (max "
+                      f"{beats['host_busy_max']}), runnable tasks at most "
+                      f"{beats['runnable_max']} on {beats['cpus_usable']} "
+                      f"CPUs; CPU share "
+                      f"{beats['cpu_share']}; {beats['late']} late samples, "
+                      f"{len(beats['dumps'])} stack dumps", flush=True)
         rt.shutdown()
+        shutil.rmtree(stacks, ignore_errors=True)
     deadline = time.monotonic() + 30
     while (_cluster_pids(session_dir, system_pids)
            and time.monotonic() < deadline):
@@ -6333,7 +6721,8 @@ def _scale_domain(rt, dev, addr, session_dir):
     from ray_tpu_torch._private.protocol import GPU_COORD_LABEL
     from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalingConfig,
                                           SliceSpec)
-    from ray_tpu_torch.autoscaler.gcp import (FakeGcpTransport,
+    from ray_tpu_torch.autoscaler.gcp import (INSTANCE_LABEL,
+                                              FakeGcpTransport,
                                               GpuVmNodeProvider)
     from ray_tpu_torch.gpu.accelerator import model_of
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
@@ -6353,13 +6742,12 @@ def _scale_domain(rt, dev, addr, session_dir):
             addr, session_dir, resources=resources,
             labels={"gpu-domain-name": metadata["rt-slice-name"],
                     "gpu-pod-type": metadata["rt-pod-type"],
-                    GPU_COORD_LABEL: f"0,{h}"})
+                    GPU_COORD_LABEL: f"0,{h}", INSTANCE_LABEL: name})
         booted[name] = (proc, info["node_id"], time.time())
         return lambda: node_mod.kill_process(proc)
 
-    # the JAX package's GCP provider has no node_alive, so once the domain
-    # exists every reconcile raises AttributeError (ROADMAP Queue 3): count
-    # those records instead of printing each
+    # a reconcile that raises is logged by the loop and decides nothing:
+    # count the records (the gate wants none)
     failures = []
 
     class _Count(logging.Handler):
@@ -6378,7 +6766,7 @@ def _scale_domain(rt, dev, addr, session_dir):
                           control_address=addr, transport=transport,
                           cluster_name="scale"),
         AutoscalingConfig(
-            min_workers=0, max_workers=0, idle_timeout_s=3600,
+            min_workers=0, max_workers=0, idle_timeout_s=SCALE_IDLE_S,
             poll_period_s=SCALE_POLL_S,
             slice_types={pod: SliceSpec(hosts=1,
                                         resources_per_host=SCALE_DOMAIN)},
@@ -6416,6 +6804,7 @@ def _scale_domain(rt, dev, addr, session_dir):
         _check(not fit.is_alive() and "result" in box,
                "scale (b): fit did not return")
         result = box["result"]
+        t_idle = time.monotonic()
         _check(result.error is None, f"scale (b): fit failed: {result.error}")
         hist = [m for m in result.metrics_history if "loss" in m]
         domain_nodes = [nid for _, nid, _ in booted.values()]
@@ -6424,6 +6813,20 @@ def _scale_domain(rt, dev, addr, session_dir):
         slices = [dict(s, nodes=[{k: v for k, v in n.items() if k != "proc"}
                                  for n in s["nodes"]])
                   for s in scaler.slices]
+        # the idle domain scales in: drained, then terminated, before stop()
+        _scale_wait(lambda: set(domain_nodes) <= set(scaler._draining)
+                    or not scaler.slices, SCALE_WAIT_S,
+                    "the idle domain was not drained")
+        out["idle_to_drain_s"] = time.monotonic() - t_idle
+        _scale_wait(lambda: not scaler.slices, SCALE_WAIT_S,
+                    "the drained domain was not terminated")
+        out["idle_to_terminated_s"] = time.monotonic() - t_idle
+        out["idle_daemons_exited"] = _scale_wait(
+            lambda: all(p.poll() is not None for p, _, _ in booted.values()),
+            30, "the domain's daemons did not exit")
+        out["idle_left_instances"] = sorted(transport.instances)
+        out["deaths"] = [(_scale_node(rt, nid) or {}).get("death")
+                         for nid in domain_nodes]
         inserts = [u for m, u in transport.calls
                    if m == "POST" and "/instances" in u]
         out.update(
@@ -6462,11 +6865,13 @@ def _scale_domain(rt, dev, addr, session_dir):
     print(json.dumps({"scale_domain": out}, default=str), flush=True)
     print(f"scale (b): domain {pod} ALIVE {out['fit_to_alive_s']} s after "
           f"fit(), first step {out['fit_to_first_step_s']:.2f} s after; "
-          f"stop() to no instance and no daemon "
+          f"idle to drained {out['idle_to_drain_s']:.2f} s, to terminated "
+          f"{out['idle_to_terminated_s']:.2f} s (idle timeout "
+          f"{SCALE_IDLE_S} s); stop() after it "
           f"{out['stop_to_terminated_s']:.2f} s; reference "
           f"{out['reference_s']:.2f} s beside the start; "
-          f"{out['reconcile_failures']} reconciles failed after the domain "
-          f"came ({out['first_failure']})", flush=True)
+          f"{out['reconcile_failures']} reconciles failed "
+          f"({out['first_failure']})", flush=True)
     L = SCALE_CFG["n_layers"]
     _check(out["inserts"] == 1 and len(out["slices"]) == 1
            and len(domain_nodes) == 1,
@@ -6484,6 +6889,15 @@ def _scale_domain(rt, dev, addr, session_dir):
     _check(out["losses"] == reference,
            f"scale (b): losses {out['losses']} against {reference} in "
            f"process (bitwise)")
+    _check(out["reconcile_failures"] == 0,
+           f"scale (b): {out['reconcile_failures']} reconciles failed, the "
+           f"first: {out['first_failure']}")
+    _check(not out["idle_left_instances"] and out["idle_daemons_exited"],
+           f"scale (b): once the idle domain was terminated, instances "
+           f"{out['idle_left_instances']}, daemons exited "
+           f"{out['idle_daemons_exited']}")
+    _check(all((d or {}).get("expected") is True for d in out["deaths"]),
+           f"scale (b): the domain's death records {out['deaths']}")
     _check(not out["left_instances"] and gone,
            f"scale (b): after stop() instances {out['left_instances']}, "
            f"domain daemons exited {gone}")

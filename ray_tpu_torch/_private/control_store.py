@@ -1041,6 +1041,8 @@ class ControlStore:
                 "total": info.resources.to_wire(),
                 "available": avail.to_wire() if avail else {},
                 "pending": load.get("pending", 0),
+                # the autoscaler matches a cloud machine's daemon by label
+                "labels": dict(info.labels),
                 "idle": (avail is not None
                          and avail.to_wire() == info.resources.to_wire()
                          and load.get("pending", 0) == 0),

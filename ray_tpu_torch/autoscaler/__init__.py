@@ -8,6 +8,15 @@ with TPU slices replaced by NVLink domains (``gpu/slice.py``): a pending
 carry the ``gpu-domain-name``, ``gpu-pod-type`` and ``rt.gpu.coord``
 labels gang placement reads.
 
+Where the JAX package's decisions cannot work, the port's differ: a cloud
+provider's handle carries ``match_labels``, and the node id of the daemon
+whose labels hold them replaces the handle's own (``_match_booted``), so a
+cloud worker counts as launching only until its daemon registers and
+scales in as a local one does; a domain all of whose hosts were matched
+so drains and terminates as a whole once every host idles past the
+timeout. Providers whose handles carry the daemons' own ids keep JAX's
+decisions exactly.
+
 Reference surface: python/ray/autoscaler/v2/autoscaler.py:51 (Autoscaler),
 v2/scheduler.py:895 (ResourceDemandScheduler bin-packing pending demand
 into node types), v2/instance_manager (provider reconciliation), and the
@@ -456,6 +465,7 @@ class Autoscaler:
         self._load_cursor = load.get("version", -1)
         # downstream logic sees the merged full row set either way
         load = {**load, "nodes": list(self._load_rows.values())}
+        self._match_booted(load["nodes"])
         launched = terminated = 0
 
         # prune workers/slices whose daemons died out-of-band — a dead
@@ -492,7 +502,11 @@ class Autoscaler:
         # nodes it keeps)
         allowed = max(0, len(self.workers) - self.config.min_workers)
         drained = [nid for nid in self._draining if nid in by_id]
-        to_undrain = drained if demand > 0 else drained[allowed:]
+        # a domain's drained hosts are held by the domain scale-in below,
+        # not by the min_workers floor
+        hosts = {n["node_id"] for sl in self.slices for n in sl["nodes"]}
+        to_undrain = drained if demand > 0 else [
+            nid for nid in drained if nid not in hosts][allowed:]
         undrained = 0
         for nid in to_undrain:
             try:
@@ -675,11 +689,86 @@ class Autoscaler:
                                     nid[:12])
                     except Exception:  # noqa: BLE001
                         pass
+        if demand == 0:
+            terminated += self._scale_in_domains(by_id, now)
         return {"launched": launched, "terminated": terminated,
                 "workers": len(self.workers), "demand": demand,
                 "slices": len(self.slices),
                 "launched_slices": launched_slices,
                 "preempting": len(self._preempt_pending)}
+
+    def _match_booted(self, rows: List[dict]) -> None:
+        """Give each handle with ``match_labels`` the node id of the row
+        whose labels hold them: a cloud machine's daemon registers under an
+        id of its own, which the handle learns here. A handle with no such
+        row (still booting, or its daemon gone) keeps its last id."""
+        handles = [h for h in self.workers + [
+            n for sl in self.slices for n in sl["nodes"]]
+            if h.get("match_labels")]
+        if not handles:
+            return
+        index: Dict[tuple, set] = {}
+        for row in rows:
+            for item in (row.get("labels") or {}).items():
+                index.setdefault(item, set()).add(row["node_id"])
+        for h in handles:
+            ids = set.intersection(*(index.get(item, set())
+                                     for item in h["match_labels"].items()))
+            if ids:
+                h["node_id"] = min(ids)
+
+    def _scale_in_domains(self, by_id: Dict[str, dict], now: float) -> int:
+        """Scale in matched domains whole, in the workers' two phases: every
+        host idle past the timeout -> drain each; every host still idle on a
+        later poll -> unregister each and ``terminate_slice``. Only domains
+        whose hosts all carry ``match_labels`` (cloud domains): a local
+        provider's domains keep JAX's decisions, which never scale them in.
+        Returns the hosts terminated."""
+        terminated = 0
+        for sl in list(self.slices):
+            hosts = sl["nodes"]
+            if not all(h.get("match_labels") for h in hosts):
+                continue
+            ids = [h["node_id"] for h in hosts]
+            rows = [by_id.get(nid) for nid in ids]
+            since = [self._idle_since.get(nid) for nid in ids]
+            if None in rows or None in since:
+                continue
+            if all(nid in self._draining for nid in ids):
+                if not all(r["idle"] for r in rows):
+                    continue
+                for nid in ids:
+                    try:
+                        self._control_call(
+                            "unregister_node",
+                            {"node_id": bytes.fromhex(nid), "expected": True,
+                             "reason": "autoscaler scale-in"}, 10)
+                    except Exception:  # noqa: BLE001 — dead already
+                        pass
+                    self._idle_since.pop(nid, None)
+                    self._draining.pop(nid, None)
+                self.provider.terminate_slice(sl)
+                self.slices.remove(sl)
+                terminated += len(ids)
+                logger.info("autoscaler terminated drained domain %s",
+                            sl["slice_name"])
+                self._report_event("SLICE_TERMINATED", sl["slice_name"],
+                                   hosts=len(ids))
+            elif all(now - t >= self.config.idle_timeout_s for t in since):
+                for nid in ids:
+                    if nid in self._draining:
+                        continue
+                    try:
+                        self._control_call(
+                            "drain_node",
+                            {"node_id": bytes.fromhex(nid),
+                             "reason": "autoscaler"}, 10)
+                        self._draining[nid] = now
+                    except Exception:  # noqa: BLE001 — retry next poll
+                        pass
+                logger.info("autoscaler draining idle domain %s",
+                            sl["slice_name"])
+        return terminated
 
     # -- background loop -------------------------------------------------
 

@@ -21,6 +21,13 @@ end.
 
 Auth on real GCE rides the metadata server's default service-account
 token (the standard in-cluster credential; no SDK dependency).
+
+A machine's startup script labels the daemon it starts with
+``INSTANCE_LABEL`` = its own instance name (which every GCE VM reads from
+its metadata server, and the fake's ``boot`` receives as ``name``). Each
+handle names that label in ``match_labels``, so the autoscaler finds the
+daemon a VM booted in the store's node table and takes its node id; the
+JAX package's provider, with no such label, matches nothing.
 """
 
 from __future__ import annotations
@@ -29,10 +36,11 @@ import itertools
 import json
 import logging
 import time
+import urllib.error
 import urllib.request
 from typing import Any, Callable, Dict, List, Optional
 
-from ray_tpu_torch.autoscaler import SliceSpec
+from ray_tpu_torch.autoscaler import NodeProvider, SliceSpec
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +67,15 @@ ACCELERATOR_TYPES: Dict[str, Dict[str, Any]] = {
     "GB200-72": {"machine_type": "a4x-highgpu-4g", "hosts": 18,
                  "gpus_per_host": 4},
 }
+
+# the node label a machine's startup script gives its daemon: the
+# instance's own name
+INSTANCE_LABEL = "gce-instance"
+
+# instance states in which the machine exists and runs or is about to
+# (GCE's lifecycle: PROVISIONING -> STAGING -> RUNNING -> STOPPING ->
+# TERMINATED, then gone once deleted)
+_LIVE_STATES = ("PROVISIONING", "STAGING", "RUNNING")
 
 # GCE refuses live migration for a VM with GPUs: it must stop on host
 # maintenance
@@ -173,7 +190,7 @@ class FakeGcpTransport(GcpTransport):
         raise ValueError(f"FakeGcpTransport: unhandled {method} {url}")
 
 
-class GpuVmNodeProvider:
+class GpuVmNodeProvider(NodeProvider):
     """Autoscaler provider provisioning GCE worker VMs (create_node) and
     whole NVLink domains of GPU VMs (create_slice). The startup metadata
     each machine receives tells its boot script how to join the cluster —
@@ -229,10 +246,26 @@ class GpuVmNodeProvider:
             "POST", f"{self._gce_base()}/instances?name={name}", body)
         self._wait_op(self._gce_base(), op)
         logger.info("gcp: launched worker VM %s", name)
-        # as in the JAX package, the handle's node_id is the instance name,
-        # which no control-store node row carries (ROADMAP Queue 3)
+        # node_id is the instance name (as in the JAX package) until the
+        # autoscaler matches the daemon the VM boots by its label
         return {"name": name, "kind": "gce", "node_id": name,
-                "proc": _NoProc()}
+                "match_labels": {INSTANCE_LABEL: name}, "proc": _NoProc()}
+
+    def node_alive(self, handle: Any) -> bool:
+        """Whether the instance behind a worker or host handle exists in a
+        live state; a domain handle (``nodes``) is alive while any of its
+        hosts is. An answer other than the instance or its absence (the
+        API unreachable) counts as alive: the store's records decide."""
+        if "nodes" in handle:
+            return any(self.node_alive(n) for n in handle["nodes"])
+        try:
+            inst = self.transport.request(
+                "GET", f"{self._gce_base()}/instances/{handle['name']}")
+        except urllib.error.HTTPError as e:
+            return e.code != 404
+        except OSError:
+            return True
+        return inst.get("status") in _LIVE_STATES
 
     def terminate_node(self, handle: Any) -> None:
         op = self.transport.request(
@@ -291,11 +324,13 @@ class GpuVmNodeProvider:
         logger.info("gcp: provisioned NVLink domain %s (%d x %s)", name,
                     spec.hosts, machine_type)
         # hosts register themselves as daemons when their startup script
-        # runs; the autoscaler tracks them via the control store's node
-        # table, so handle-level procs are placeholders
+        # runs; the autoscaler matches each by its instance label, so
+        # handle-level procs are placeholders
         return {"slice_name": name, "pod_type": pod_type,
                 "nodes": [{"name": host, "host": h,
-                           "node_id": f"{name}/{h}", "proc": _NoProc()}
+                           "node_id": f"{name}/{h}",
+                           "match_labels": {INSTANCE_LABEL: host},
+                           "proc": _NoProc()}
                           for h, host in enumerate(hosts)]}
 
     def terminate_slice(self, handle: Dict[str, Any]) -> None:
@@ -307,8 +342,8 @@ class GpuVmNodeProvider:
 
 
 class _NoProc:
-    """Cloud machines have no local process handle; poll() reporting
-    'alive' defers liveness entirely to the control store's node table."""
+    """Cloud machines have no local process handle; ``node_alive`` asks
+    the API instead."""
 
     def poll(self):
         return None
@@ -320,4 +355,5 @@ __all__ = [
     "GceTransport",
     "GcpTransport",
     "GpuVmNodeProvider",
+    "INSTANCE_LABEL",
 ]

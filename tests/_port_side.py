@@ -752,7 +752,8 @@ def import_check(root):
         "'ray_tpu_torch.job_submission._supervisor', "
         "'ray_tpu_torch.autoscaler', 'ray_tpu_torch.autoscaler.gcp', "
         "'ray_tpu_torch.autoscaler.launcher', "
-        "'ray_tpu_torch.autoscaler.fake_provider'} <= set(names), names\n"
+        "'ray_tpu_torch.autoscaler.fake_provider', "
+        "'ray_tpu_torch.dashboard'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -1902,3 +1903,108 @@ def profiler_captures(root):
     return dict(local=local, local_mm="aten::mm" in names(local[0]),
                 files=files, actor_pid=actor_pid, port=port, again=again,
                 actor_files=actor_files, pid=os.getpid())
+
+
+# -- the dashboard (tests/test_torch_dashboard.py) ------------------------
+
+_DASH = {}
+
+
+def dash_start(num_cpus):
+    """A port cluster in this process and its dashboard on a port the
+    system picks: the dashboard's URL and the node's hex id."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.core_worker import get_core_worker
+    from ray_tpu_torch.dashboard import start_dashboard
+
+    rt.init(num_cpus=num_cpus)
+    atexit.register(dash_stop)
+    url = start_dashboard(port=0)
+    return {"url": url, "again": start_dashboard(port=0),
+            "node": get_core_worker().node_id_hex}
+
+
+def dash_stop():
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import stop_dashboard
+
+    if rt.is_initialized():
+        try:
+            stop_dashboard()
+        finally:
+            rt.shutdown()
+
+
+def dash_workload():
+    """``test_dashboard_endpoints``' work: a named actor that answers and a
+    task that bumps a user counter, then sleeps past a metrics flush."""
+    import ray_tpu_torch as rt
+
+    @rt.remote
+    def traced():
+        from ray_tpu_torch.util.metrics import Counter
+
+        Counter("dash_test_counter").inc(2)
+        time.sleep(1.2)  # let telemetry flush
+        return 1
+
+    @rt.remote
+    class DashActor:
+        def ping(self):
+            return "pong"
+
+    a = DashActor.options(name="dash-actor").remote()
+    _DASH["actor"] = a
+    return rt.get(a.ping.remote(), timeout=60), rt.get(traced.remote(),
+                                                       timeout=60)
+
+
+def dash_kill_actor():
+    import ray_tpu_torch as rt
+
+    rt.kill(_DASH.pop("actor"))
+
+
+def dash_series():
+    """``test_web_frontend_and_metrics_export``'s work: a traced task (the
+    per-hop histogram) and the LLM serving / autoscaler series set in this
+    driver."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.util.metrics import Counter, Gauge
+
+    GLOBAL_CONFIG.apply_system_config({"tracing_enabled": True})
+
+    @rt.remote
+    def hop_probe():
+        return 1
+
+    got = rt.get(hop_probe.remote(), timeout=60)
+    Gauge("rt_llm_kv_blocks_in_use",
+          "paged-KV blocks held by admitted requests").set(3)
+    Gauge("rt_llm_batch_occupancy",
+          "active decode slots / max_num_seqs").set(0.5)
+    Counter("rt_llm_prefix_hits_total",
+            "prefix-cache block hits at admission").inc(4)
+    Gauge("rt_serve_target_replicas", "autoscaler target replica count",
+          ("deployment",)).set(2, {"deployment": "dash-d"})
+    return got
+
+
+def dash_long_task(seconds):
+    """Submit a task that sleeps ``seconds`` (a leased worker to profile);
+    ``dash_long_result`` waits for it."""
+    import ray_tpu_torch as rt
+
+    @rt.remote
+    def long_task():
+        time.sleep(seconds)
+        return 1
+
+    _DASH["long"] = long_task.remote()
+
+
+def dash_long_result():
+    import ray_tpu_torch as rt
+
+    return rt.get(_DASH.pop("long"), timeout=60)

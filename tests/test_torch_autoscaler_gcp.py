@@ -5,8 +5,9 @@ package's, driven offline through each package's ``FakeGcpTransport``.
 Tier-1 (no cluster): the REST surface of GCE workers and NVLink domains;
 ``create_node``'s request body against the JAX package's; the host-count
 ``ValueError`` of both; ``load_cluster_config`` and ``_autoscaling_config``
-of both on one YAML; the launcher's refusals; and the cloud-worker-id
-finding (ROADMAP Queue 3), held on both packages.
+of both on one YAML; the launcher's refusals; and the cloud-worker
+findings (ROADMAP Queue 3), held on the JAX package and repaired in the
+port.
 
 ``mid`` (``-m mid``): ``tests/test_autoscaler_gcp.py``'s two cluster cases
 on port clusters: a domain provisioned through the fake cloud for a
@@ -254,9 +255,10 @@ def _wire(res):
 
 @pytest.mark.parametrize("pkg", ["jax", "port"])
 def test_cloud_worker_findings(pkg, monkeypatch):
-    """The findings of ROADMAP Queue 3, held on both packages.
+    """The GCP findings of ROADMAP Queue 3: held on the JAX package, and
+    repaired in the port (``_port_cloud_repair``).
 
-    1. The GCP provider has no ``node_alive`` (it is no ``NodeProvider``),
+    1. JAX's GCP provider has no ``node_alive`` (it is no ``NodeProvider``),
        so once a worker exists every ``reconcile_once`` raises
        AttributeError at the prune (the background loop logs it and
        decides nothing more).
@@ -266,9 +268,11 @@ def test_cloud_worker_findings(pkg, monkeypatch):
        row carries the instance name, so the worker counts as a launching
        bin forever and absorbs new demand, and scale-in never drains or
        terminates it, however long the node it booted stays idle."""
-    mod, gcp, res = ((jax_as, jax_gcp, "TPU") if pkg == "jax"
-                     else (port_as, port_gcp, "GPU"))
-    cls = getattr(gcp, "TpuVmNodeProvider", None) or gcp.GpuVmNodeProvider
+    if pkg == "port":
+        _port_cloud_repair(monkeypatch)
+        return
+    mod, gcp, res = jax_as, jax_gcp, "TPU"
+    cls = gcp.TpuVmNodeProvider
     clock = {"t": 100.0}
     monkeypatch.setattr(mod, "time", types.SimpleNamespace(
         monotonic=lambda: clock["t"], time=lambda: 1.7e9 + clock["t"]))
@@ -324,6 +328,134 @@ def test_cloud_worker_findings(pkg, monkeypatch):
         pending=[{res: 1.0}])) == 0
 
 
+def _port_cloud_repair(monkeypatch):
+    """The port's repair of both findings, on one scripted store: the
+    provider's ``node_alive`` reads the instance, and a daemon labelled
+    with its instance name (``gcp.INSTANCE_LABEL``, as a VM's startup
+    script labels it) gives the handle its node id. So a worker counts as
+    a launching bin only until its daemon registers; it is pruned only
+    when its instance is gone; an idle booted worker drains and terminates
+    through ``terminate_node``, and an idle booted domain through
+    ``terminate_slice``."""
+    clock = {"t": 100.0}
+    monkeypatch.setattr(port_as, "time", types.SimpleNamespace(
+        monotonic=lambda: clock["t"], time=lambda: 1.7e9 + clock["t"]))
+    head = "ff" * 16
+    worker = {"CPU": 2.0, "GPU": 1.0}
+    host = {"CPU": 1.0, "GPU": 8.0}
+    label = port_gcp.INSTANCE_LABEL
+    idle_head = {"node_id": head, "state": "ALIVE",
+                 "total": _wire({"CPU": 2.0}),
+                 "available": _wire({"CPU": 2.0}), "idle": True,
+                 "labels": {}}
+
+    def load(nodes, pending=(), pgs=()):
+        return {"nodes": [idle_head, *nodes],
+                "pending_resources": [_wire(r) for r in pending],
+                "pending_total": len(pending),
+                "pending_pg_bundles": [{"resources": _wire(b)} for b in pgs],
+                "delta": False}
+
+    def row(nid, name, total, idle, state="ALIVE"):
+        return {"node_id": nid, "state": state, "total": _wire(total),
+                "available": _wire(total if idle else {"CPU": 0.0}),
+                "idle": idle, "labels": {label: name}}
+
+    store = {"load": None}
+    calls = []
+
+    class Scripted(port_as.Autoscaler):
+        def _control_call(self, method, payload, timeout=30.0):
+            calls.append((method, payload))
+            return store["load"] if method == "get_cluster_load" else {}
+
+    def step(advance=1.0, **kw):
+        store["load"] = load(**kw)
+        out = scaler.reconcile_once()
+        clock["t"] += advance
+        return out
+
+    def sent(method):
+        return [p["node_id"].hex() for m, p in calls if m == method]
+
+    t = port_gcp.FakeGcpTransport(op_latency=0)
+    provider = port_gcp.GpuVmNodeProvider(
+        project="p", zone="z", control_address="a:1", transport=t)
+    assert isinstance(provider, port_as.NodeProvider)
+    scaler = Scripted(provider, port_as.AutoscalingConfig(
+        min_workers=0, max_workers=2, worker_resources=worker,
+        idle_timeout_s=5.0, poll_period_s=1.0, slice_types={
+            "H100-16": port_as.SliceSpec(hosts=2, resources_per_host=host)},
+        max_slices=1))
+
+    # a GPU shape launches one worker; until its daemon registers it is a
+    # launching bin (the same shape again launches nothing) and alive
+    assert step(nodes=[], pending=[{"GPU": 1.0}])["launched"] == 1
+    (w,) = scaler.workers
+    name = w["name"]
+    assert w["node_id"] == name and w["match_labels"] == {label: name}
+    assert step(nodes=[], pending=[{"GPU": 1.0}])["launched"] == 0
+    assert provider.node_alive(w) and len(scaler.workers) == 1
+    # its daemon registers under an id of its own, labelled with the
+    # instance name: the handle takes that id and is a launching bin no more
+    booted = "0a" * 16
+    assert step(nodes=[row(booted, name, worker, idle=False)])[
+        "launched"] == 0
+    assert w["node_id"] == booted
+    assert scaler._unmet_worker_need(load(
+        [row(booted, name, worker, idle=False)],
+        pending=[{"GPU": 1.0}])) == 1
+    # idle past the timeout: drained, then unregistered and deleted
+    for _ in range(3):
+        step(advance=3.0, nodes=[row(booted, name, worker, idle=True)])
+    assert sent("drain_node") == [booted]
+    out = step(nodes=[row(booted, name, worker, idle=True,
+                          state="DRAINING")])
+    assert out["terminated"] == 1 and not scaler.workers
+    assert sent("unregister_node") == [booted]
+    assert name not in t.instances and not provider.node_alive(w)
+
+    # a worker whose instance is gone before its daemon came is pruned;
+    # while the instance lives it is kept however long the boot takes
+    assert step(nodes=[], pending=[{"GPU": 1.0}])["launched"] == 1
+    (w2,) = scaler.workers
+    for _ in range(3):
+        step(advance=10.0, nodes=[])
+    assert scaler.workers == [w2]
+    del t.instances[w2["name"]]
+    step(nodes=[])
+    assert scaler.workers == []
+
+    # a domain for a pending head token: launching capacity until every
+    # host's daemon registers, then an idle domain drains and terminates
+    head_token = {"GPU-H100-16-head": 1.0}
+    assert step(nodes=[], pgs=[head_token])["launched_slices"] == 1
+    (sl,) = scaler.slices
+    hosts = [n["name"] for n in sl["nodes"]]
+    assert sorted(t.instances) == sorted(hosts)
+    assert step(nodes=[], pgs=[head_token])["launched_slices"] == 0
+    ids = ["1b" * 16, "1c" * 16]
+    rows = [row(i, n, host, idle=True) for i, n in zip(ids, hosts)]
+    step(nodes=rows)
+    assert [n["node_id"] for n in sl["nodes"]] == ids
+    assert scaler._slice_need(load(rows, pgs=[head_token])) == {
+        "H100-16": 1}
+    for _ in range(3):
+        step(advance=3.0, nodes=rows)
+    assert sent("drain_node")[-2:] == ids
+    out = step(nodes=[dict(r, state="DRAINING") for r in rows])
+    assert out["terminated"] == 2 and not scaler.slices
+    assert sent("unregister_node")[-2:] == ids
+    assert not t.instances and not provider.node_alive(sl)
+    # a domain handle is alive while any of its hosts is
+    sl2 = provider.create_slice("H100-16", port_as.SliceSpec(
+        hosts=2, resources_per_host=host))
+    del t.instances[sl2["nodes"][0]["name"]]
+    assert provider.node_alive(sl2)
+    del t.instances[sl2["nodes"][1]["name"]]
+    assert not provider.node_alive(sl2)
+
+
 # ---------------------------------------------------------------------------
 # mid: tests/test_autoscaler_gcp.py's cluster cases on port clusters
 # ---------------------------------------------------------------------------
@@ -340,7 +472,8 @@ def _daemon_boot(control_address, session_dir):
         if kind == "gce":
             proc, _ = node_mod.start_node_daemon(
                 control_address, session_dir,
-                resources=json.loads(metadata["rt-resources"]))
+                resources=json.loads(metadata["rt-resources"]),
+                labels={port_gcp.INSTANCE_LABEL: name})
         else:
             resources = json.loads(metadata["rt-resources"])
             pod_type, h = metadata["rt-pod-type"], metadata["rt-host-index"]
@@ -350,7 +483,8 @@ def _daemon_boot(control_address, session_dir):
                 control_address, session_dir, resources=resources,
                 labels={"gpu-domain-name": metadata["rt-slice-name"],
                         "gpu-pod-type": pod_type,
-                        pb.GPU_COORD_LABEL: f"0,{h}"})
+                        pb.GPU_COORD_LABEL: f"0,{h}",
+                        port_gcp.INSTANCE_LABEL: name})
         return lambda: node_mod.kill_process(proc)
 
     return boot
