@@ -1,0 +1,10 @@
+"""decode_step_ms.serve: the device time of one decode step, from the first
+kernel it launched starting to the last ending, averaged over the steps
+the traced stretch holds whole (``eng._decode`` wrapped in a span)."""
+
+import yardstick
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    return yardstick.mean_ms(tr.extents("portbench.decode.")) if tr else None
