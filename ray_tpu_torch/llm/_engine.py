@@ -21,6 +21,16 @@
 - **Continuous batching and streaming**: requests arriving mid-decode join
   the running batch at the next step boundary; tokens flow to callers
   through per-request async queues.
+- **Two threads**: the asyncio loop owns the host state, the request
+  queues and the metrics; the model steps (admission's prefill and the
+  decode step) run on one worker thread, which hands its results back to
+  the loop and touches no queue.
+- **Spans** (``util/tracing.py``, recorded while tracing is on or a
+  profiler runs): on the loop ``engine.turn``, ``engine.wait``,
+  ``engine.idle`` (which tile its time), ``engine.emit`` and each
+  request's ``engine.queue``; on the worker ``engine.step`` (holding
+  ``engine.launch`` and ``engine.sync``) and ``engine.admit`` (holding
+  ``engine.prefill`` and ``engine.first_token``).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch.nn.functional as F
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.llama import (LlamaConfig, layer_params, rms_norm,
                                         rope_tables)
+from ray_tpu_torch.util import tracing
 
 __all__ = ["EngineConfig", "PagedEngine"]
 
@@ -262,6 +273,10 @@ class _Request:
     # disaggregated serving: prefill ran on ANOTHER worker; admission
     # injects the transferred KV blocks instead of running _prefill
     prefilled: Optional[tuple] = None  # (k [L,nb,bs,kvh,hd], v, last_logits)
+    # the caller's span at enqueue (the request's spans chain to it) and
+    # the open engine.queue span
+    trace_parent: Optional[dict] = None
+    queue_span: Optional[dict] = None
 
 
 class PagedEngine:
@@ -348,15 +363,28 @@ class PagedEngine:
             self.free_blocks.extend(self._prefix_cache.evict(short))
         return len(self.free_blocks) >= want
 
-    def _try_admit(self, req: _Request) -> bool:
+    def _try_admit(self, req: _Request) -> Optional[tuple]:
+        """Admission's device half, on the worker thread: blocks, the
+        prefill and the first token. Returns (slot, first token, prefix
+        blocks hit) for the loop to activate, or None when the head must
+        wait for a slot or blocks. A request that cannot be admitted at
+        all raises."""
+        with tracing.span("engine.admit", parent=req.trace_parent,
+                          attrs={"rid": req.rid}) as sp:
+            return self._admit(req, sp)
+
+    def _admit(self, req: _Request, sp: Optional[dict]) -> Optional[tuple]:
         need = self._blocks_needed(req)
         try:
             slot = next(i for i, r in enumerate(self.slot_req) if r is None)
         except StopIteration:
-            return False
+            return None
+        free0 = len(self.free_blocks)
         if req.prefilled is not None:
             if not self._free_with_eviction(need):
-                return False
+                return None
+            tracing.set_attrs(sp, hit_blocks=0, new_blocks=need,
+                              evicted=len(self.free_blocks) - free0)
             return self._admit_prefilled(req, slot, need)
         cache = self._prefix_cache
         plen = len(req.prompt)
@@ -374,7 +402,9 @@ class PagedEngine:
         if not self._free_with_eviction(need_new):
             if cache is not None:
                 cache.cancel_match(hits)
-            return False
+            return None
+        tracing.set_attrs(sp, hit_blocks=len(hits), new_blocks=need_new,
+                          evicted=len(self.free_blocks) - free0)
         blocks = [self.free_blocks.pop() for _ in range(need_new)]
         row_blocks = hits + blocks
         try:
@@ -382,23 +412,23 @@ class PagedEngine:
             row[: len(row_blocks)] = row_blocks
             self.tables[slot] = row
             cached_len = len(hits) * self.bs
+            # with a cached prefix only the suffix runs, over its blocks
+            slen = plen - cached_len
+            S = max(8, 1 << (slen - 1).bit_length())  # pow-2 bucket
+            toks = np.zeros((S,), np.int64)
+            toks[:slen] = req.prompt[cached_len:]
             with torch.no_grad():
-                if cached_len:
-                    # prefill ONLY the suffix over the cached prefix blocks
-                    slen = plen - cached_len
-                    S = max(8, 1 << (slen - 1).bit_length())  # pow-2 bucket
-                    suffix = np.zeros((S,), np.int64)
-                    suffix[:slen] = req.prompt[cached_len:]
-                    logits = self._suffix_prefill(
-                        S, self.params, self.kc, self.vc, self._dev(row),
-                        self._dev(suffix), cached_len, slen)
-                else:
-                    S = max(8, 1 << (plen - 1).bit_length())  # pow-2 bucket
-                    prompt = np.zeros((S,), np.int64)
-                    prompt[:plen] = req.prompt
-                    logits = self._prefill(
-                        S, self.params, self.kc, self.vc, self._dev(row),
-                        self._dev(prompt), plen)
+                with tracing.span("engine.prefill", on=sp is not None, attrs={
+                        "rid": req.rid, "tokens": slen, "padded": S,
+                        "cached_len": cached_len}):
+                    if cached_len:
+                        logits = self._suffix_prefill(
+                            S, self.params, self.kc, self.vc, self._dev(row),
+                            self._dev(toks), cached_len, slen)
+                    else:
+                        logits = self._prefill(
+                            S, self.params, self.kc, self.vc, self._dev(row),
+                            self._dev(toks), plen)
                 tok = self._sample_first(req, slot, logits)
         except BaseException:
             # any failure between the block pop and slot activation must
@@ -416,14 +446,7 @@ class PagedEngine:
             full = plen // self.bs
             self.free_blocks.extend(
                 cache.register(keys[:full], row_blocks[:full]))
-            if hits:
-                from ray_tpu_torch.util.metrics import Counter
-
-                Counter("rt_llm_prefix_hits_total",
-                        "KV blocks reused from the prompt-prefix cache "
-                        "instead of re-prefilled.").inc(len(hits))
-        self._activate_slot(req, slot, tok)
-        return True
+        return slot, tok, len(hits)
 
     def _emit(self, req: _Request, tok: int):
         req.produced += 1
@@ -467,18 +490,26 @@ class PagedEngine:
         generator — shared by local and prefilled admission. Greedy is the
         argmax, as in JAX; temperature sampling draws from a torch
         generator and cannot reproduce jax.random's stream."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(req.seed * 1000003 + req.rid)
-        if req.temperature > 0:
-            probs = torch.softmax(logits / max(req.temperature, 1e-6), -1)
-            tok = int(torch.multinomial(probs, 1, generator=gen)[0])
-        else:
-            tok = int(torch.argmax(logits))
-        self._gens[slot] = gen
-        return tok
+        with tracing.span("engine.first_token", attrs={"rid": req.rid}):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(req.seed * 1000003 + req.rid)
+            if req.temperature > 0:
+                probs = torch.softmax(logits / max(req.temperature, 1e-6), -1)
+                tok = int(torch.multinomial(probs, 1, generator=gen)[0])
+            else:
+                tok = int(torch.argmax(logits))
+            self._gens[slot] = gen
+            return tok
 
-    def _activate_slot(self, req: _Request, slot: int, tok: int):
-        """Final admission bookkeeping shared by both admission paths."""
+    def _activate_slot(self, req: _Request, slot: int, tok: int, hits: int):
+        """Final admission bookkeeping shared by both admission paths, on
+        the loop's thread: the slot goes live and the first token out."""
+        if hits:
+            from ray_tpu_torch.util.metrics import Counter
+
+            Counter("rt_llm_prefix_hits_total",
+                    "KV blocks reused from the prompt-prefix cache "
+                    "instead of re-prefilled.").inc(hits)
         self.slot_req[slot] = req
         if req.admitted_mid_decode:
             self.mid_decode_admissions += 1
@@ -490,7 +521,7 @@ class PagedEngine:
         self._publish_metrics()
         self._emit(req, tok)
 
-    def _admit_prefilled(self, req: _Request, slot: int, need: int) -> bool:
+    def _admit_prefilled(self, req: _Request, slot: int, need: int) -> tuple:
         """Admit a request whose prefill ran on ANOTHER worker: scatter the
         transferred KV block contents into this engine's pool and seed the
         first token from the transferred last-position logits — the decode
@@ -499,14 +530,13 @@ class PagedEngine:
         nb = k_in.shape[1]
         expect = -(-len(req.prompt) // self.bs)
         if nb != expect or nb > need:
-            # malformed transfer: failing the REQUEST (not returning False,
+            # malformed transfer: failing the REQUEST (not returning None,
             # which _run_loop reads as "wait for resources") keeps the
             # admission queue moving
-            req.queue.put_nowait(ValueError(
+            raise ValueError(
                 f"transferred KV has {nb} blocks; prompt of "
                 f"{len(req.prompt)} tokens needs {expect} "
-                f"(budget {need})"))
-            return True
+                f"(budget {need})")
         blocks = [self.free_blocks.pop() for _ in range(need)]
         try:
             row = np.zeros((self.max_blocks,), np.int64)
@@ -523,8 +553,7 @@ class PagedEngine:
             self.free_blocks.extend(blocks)
             self.tables[slot] = 0
             raise
-        self._activate_slot(req, slot, tok)
-        return True
+        return slot, tok, 0
 
     # -- engine loop ----------------------------------------------------
 
@@ -536,78 +565,119 @@ class PagedEngine:
                 self._run_loop())
 
     def _run_step(self) -> np.ndarray:
-        with torch.no_grad():
-            toks = self._decode(
-                self.params, self.kc, self.vc, self._dev(self.tables),
-                self._dev(self.lens), self._dev(self.active),
-                self._dev(self.last_tok), self._gens, self.temps)
-            return toks.cpu().numpy()
+        on = tracing.recording()
+        attrs = None
+        if on:
+            act = self.active
+            attrs = {"step": self.steps, "active": int(act.sum()),
+                     "cached": int(self.lens[act].sum()),
+                     "gathered": self.ecfg.max_num_seqs * self.max_blocks
+                     * self.bs}
+        with tracing.span("engine.step", attrs=attrs, on=on), \
+                torch.no_grad():
+            with tracing.span("engine.launch", on=on):
+                toks = self._decode(
+                    self.params, self.kc, self.vc, self._dev(self.tables),
+                    self._dev(self.lens), self._dev(self.active),
+                    self._dev(self.last_tok), self._gens, self.temps)
+            with tracing.span("engine.sync", on=on):
+                return toks.cpu().numpy()
+
+    async def _on_worker(self, fn, args, what: str, on: bool):
+        """``fn(*args)`` on the worker thread; the loop waits in an
+        ``engine.wait`` span from the submit until it resumes."""
+        with tracing.span("engine.wait", attrs={"what": what}, on=on):
+            return await asyncio.get_running_loop().run_in_executor(
+                self._worker, fn, *args)
+
+    async def _admit_waiting(self, waiting, mid_decode: bool, on: bool):
+        """Admit in arrival order while slots + blocks allow — requests
+        landing here while slots decode are the "admitted mid-decode"
+        continuous-batching case."""
+        while waiting:
+            req = waiting[0]
+            if req.aborted:
+                waiting.popleft()  # consumer gone before admission
+                continue
+            if self._blocks_needed(req) > self.ecfg.num_kv_blocks:
+                # can never fit even a drained pool: surface an ERROR,
+                # not a silently empty completion
+                waiting.popleft()
+                req.queue.put_nowait(ValueError(
+                    f"request needs {self._blocks_needed(req)} KV "
+                    f"blocks but the pool has "
+                    f"{self.ecfg.num_kv_blocks}"))
+                continue
+            req.admitted_mid_decode = mid_decode
+            t_try = time.perf_counter_ns()  # the queue span ends here
+            try:
+                got = await self._on_worker(self._try_admit, (req,),
+                                            "admit", on)
+            except Exception as e:  # noqa: BLE001 — prefill failed
+                # the pool is updated in place and stays valid: only
+                # this request fails
+                waiting.popleft()
+                tracing.end_manual_span(req.queue_span, end_ns=t_try)
+                req.queue.put_nowait(e)
+                continue
+            if got is None:
+                break  # head waits for blocks/slots to free
+            waiting.popleft()
+            tracing.end_manual_span(req.queue_span, end_ns=t_try)
+            self._activate_slot(req, *got)
 
     async def _run_loop(self):
         waiting: "collections.deque[_Request]" = collections.deque()
         while True:
-            mid_decode = bool(self.active.any())
-            while not self._pending.empty():
-                waiting.append(self._pending.get_nowait())
-            # disconnect sweep: a consumer that walked away (client abort,
-            # SSE timeout) releases its slot + KV blocks at this step
-            # boundary — BEFORE admission, so the freed blocks admit the
-            # waiting head this same tick instead of leaking until OOM
-            for r in list(self.slot_req):
-                if r is not None and r.aborted and r.slot >= 0:
-                    self._release(r)
-            # admit in arrival order while slots + blocks allow — requests
-            # landing here while slots decode are the "admitted mid-decode"
-            # continuous-batching case
-            while waiting:
-                req = waiting[0]
-                if req.aborted:
-                    waiting.popleft()  # consumer gone before admission
-                    continue
-                if self._blocks_needed(req) > self.ecfg.num_kv_blocks:
-                    # can never fit even a drained pool: surface an ERROR,
-                    # not a silently empty completion
-                    waiting.popleft()
-                    req.queue.put_nowait(ValueError(
-                        f"request needs {self._blocks_needed(req)} KV "
-                        f"blocks but the pool has "
-                        f"{self.ecfg.num_kv_blocks}"))
-                    continue
-                req.admitted_mid_decode = mid_decode
-                try:
-                    ok = await asyncio.get_running_loop().run_in_executor(
-                        self._worker, self._try_admit, req)
-                except Exception as e:  # noqa: BLE001 — prefill failed
-                    # the pool is updated in place and stays valid: only
-                    # this request fails
-                    waiting.popleft()
-                    req.queue.put_nowait(e)
-                    continue
-                if not ok:
-                    break  # head waits for blocks/slots to free
-                waiting.popleft()
-            if not self.active.any():
-                # idle: block until a request arrives
-                waiting.append(await self._pending.get())
-                continue
-            # one decode step for every active slot
+            # one check an iteration: the loop's spans follow it
+            on = tracing.recording()
             step = self.steps
-            try:
-                toks = await asyncio.get_running_loop().run_in_executor(
-                    self._worker, self._run_step)
-            except Exception as e:  # noqa: BLE001 — decode step failed
-                # the device state is suspect: fail every in-flight and
-                # queued request (callers must never hang on a dead loop)
-                for req in list(self.slot_req):
-                    if req is not None:
-                        req.queue.put_nowait(e)
-                        self._release(req)
-                while waiting:
-                    waiting.popleft().queue.put_nowait(e)
+            with tracing.span("engine.turn", attrs={"step": step}, on=on):
+                mid_decode = bool(self.active.any())
                 while not self._pending.empty():
-                    self._pending.get_nowait().queue.put_nowait(e)
-                raise
-            self.steps = step + 1
+                    waiting.append(self._pending.get_nowait())
+                # disconnect sweep: a consumer that walked away (client
+                # abort, SSE timeout) releases its slot + KV blocks at this
+                # step boundary — BEFORE admission, so the freed blocks
+                # admit the waiting head this same tick instead of leaking
+                # until OOM
+                for r in list(self.slot_req):
+                    if r is not None and r.aborted and r.slot >= 0:
+                        self._release(r)
+                await self._admit_waiting(waiting, mid_decode, on)
+                busy = bool(self.active.any())
+                if busy:
+                    await self._decode_and_emit(step, waiting, on)
+            if not busy:
+                # idle: block until a request arrives
+                with tracing.span("engine.idle", on=on):
+                    req = await self._pending.get()
+                waiting.append(req)
+                continue
+            # let admissions and the consumers interleave
+            with tracing.span("engine.wait", attrs={"what": "yield"}, on=on):
+                await asyncio.sleep(0)
+
+    async def _decode_and_emit(self, step: int, waiting, on: bool):
+        """One decode step for every active slot, then its tokens out."""
+        try:
+            toks = await self._on_worker(self._run_step, (), "step", on)
+        except Exception as e:  # noqa: BLE001 — decode step failed
+            # the device state is suspect: fail every in-flight and
+            # queued request (callers must never hang on a dead loop)
+            for req in list(self.slot_req):
+                if req is not None:
+                    req.queue.put_nowait(e)
+                    self._release(req)
+            while waiting:
+                waiting.popleft().queue.put_nowait(e)
+            while not self._pending.empty():
+                self._pending.get_nowait().queue.put_nowait(e)
+            raise
+        self.steps = step + 1
+        with tracing.span("engine.emit", on=on,
+                          attrs={"step": step}) as sp:
+            n = 0
             for slot, req in enumerate(list(self.slot_req)):
                 if req is None or not self.active[slot]:
                     continue
@@ -615,7 +685,8 @@ class PagedEngine:
                 tok = int(toks[slot])
                 self.last_tok[slot] = tok
                 self._emit(req, tok)
-            await asyncio.sleep(0)  # let admissions interleave
+                n += 1
+            tracing.set_attrs(sp, tokens=n)
 
     # -- public API -----------------------------------------------------
 
@@ -637,6 +708,11 @@ class PagedEngine:
                        float(temperature), int(seed),
                        queue=asyncio.Queue(), prefilled=prefilled,
                        t_start=time.monotonic())
+        if tracing.recording():
+            req.trace_parent = tracing.current_span()
+            req.queue_span = tracing.start_manual_span(
+                "engine.queue", parent=req.trace_parent,
+                attrs={"rid": req.rid}, on=True)
         self._pending.put_nowait(req)
         try:
             while True:

@@ -65,6 +65,7 @@ from ray_tpu_torch.parallel.mesh import (P, all_gather, all_reduce_sum,
                                         reduce_from, shard_of,
                                         shard_train_state, tree_leaves,
                                         tree_map)
+from ray_tpu_torch.util import tracing
 
 
 @dataclass(frozen=True)
@@ -670,15 +671,27 @@ def make_train_step(cfg: LlamaConfig, mesh=None, learning_rate: float = 3e-4,
         donated state: the step keeps no second copy. On a mesh the
         gradients and the loss are summed over the data axes before the
         update, one flat buffer a group. Returns (state, loss), the loss a
-        0-dim tensor (the global one) that is not synchronised."""
+        0-dim tensor (the global one) that is not synchronised. Spans
+        (``util/tracing.py``): ``train.step`` holding ``train.forward``,
+        ``train.backward``, ``train.grad_sum`` (on a mesh) and
+        ``train.optimizer``; a kernel belongs to the span that launched
+        it."""
         params, opt = state
-        opt.zero_grad(set_to_none=True)
-        loss = compute_loss(cfg, params, tokens, remat, loss_chunk, mesh)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            sum_gradients(params, specs, mesh, DATA_AXES, extra=[loss])
-        opt.step()
+        on = tracing.recording()
+        with tracing.span("train.step", on=on):
+            opt.zero_grad(set_to_none=True)
+            with tracing.span("train.forward", on=on):
+                loss = compute_loss(cfg, params, tokens, remat, loss_chunk,
+                                    mesh)
+            with tracing.span("train.backward", on=on):
+                loss.backward()
+            loss = loss.detach()
+            if mesh is not None:
+                with tracing.span("train.grad_sum", on=on):
+                    sum_gradients(params, specs, mesh, DATA_AXES,
+                                  extra=[loss])
+            with tracing.span("train.optimizer", on=on):
+                opt.step()
         return state, loss
 
     return init_state, shard_state, train_step, dev

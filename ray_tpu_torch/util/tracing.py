@@ -30,7 +30,24 @@ Redesign: tracing is a first-class field of the framework's TaskSpec
 Enablement: the `tracing_enabled` config flag (env
 `RAY_TPU_tracing_enabled`, or `ray_tpu_torch.init(system_config=...)` which
 spawned processes inherit); the legacy `RT_TRACING_ENABLED` env var is
-kept as an override and `enable_tracing()` sets it for child processes.
+kept as an override (read when this module loads) and `enable_tracing()`
+sets it for child processes.
+
+Local spans. Every finished `span()` / manual span also lands in a bounded
+process-local buffer (`local_spans()`), on `time.perf_counter_ns()`, with
+its thread's name, its parent and its attributes (integers and short
+strings). A span is recorded while the flag is on OR while a
+`torch.profiler` records anywhere in the process (checked through
+`sys.modules`: this module never imports torch), so any profiler capture
+gets the program's spans with the flag off; task-spec propagation
+(`inject_context`) and the task-event plane stay on the flag alone. While
+a profiler records on the span's own thread, the span also enters
+`torch.profiler.record_function(name)`, so it appears in the Chrome trace;
+spans of other threads reach the trace's clock through the buffer. While
+recording, garbage collections are spans too (`host.gc`, with
+`generation` and `collected`). With recording off a span costs one cached
+check; a site that opens several spans checks once (`recording()`) and
+passes the answer as `on=`.
 
 W3C-style ids (32-hex trace ids, 16-hex span ids) keep the contexts
 interoperable with OTel propagators.
@@ -38,9 +55,13 @@ interoperable with OTel propagators.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
+import gc
 import os
+import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -81,13 +102,107 @@ def tracing_enabled() -> bool:
 
             _CONFIG = GLOBAL_CONFIG
         except Exception:  # noqa: BLE001 — config gone mid-teardown
-            return os.environ.get("RT_TRACING_ENABLED", "") in ("1", "true")
+            return False
     try:
-        if _CONFIG.get("tracing_enabled"):
-            return True
+        return bool(_CONFIG.get("tracing_enabled"))
     except Exception:  # noqa: BLE001 — registry mid-reset
-        pass
-    return os.environ.get("RT_TRACING_ENABLED", "") in ("1", "true")
+        return False
+
+
+# -- the local buffer ---------------------------------------------------------
+
+LOCAL_CAPACITY = 1 << 14   # ~0.7 KB a span: ~11 MB when full
+_local: "collections.deque[dict]" = collections.deque(maxlen=LOCAL_CAPACITY)
+_local_dropped = 0
+_gc_hooked = False
+_gc_start: Optional[int] = None
+_flag_seen = False  # the flag as recording() last read it (for _on_gc)
+
+
+def _profiling() -> bool:
+    """A torch.profiler records somewhere in this process (the
+    process-global flag torch keeps; torch is never imported here)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+def recording() -> bool:
+    """Whether spans are recorded now: the `tracing_enabled` flag, or a
+    profiler recording in this process."""
+    global _flag_seen
+    _flag_seen = tracing_enabled()
+    if _flag_seen or _profiling():
+        if not _gc_hooked:
+            _hook_gc()
+        return True
+    return False
+
+
+def _annotate(name: str):
+    """A ``record_function(name)`` to enter when a profiler records on
+    THIS thread (torch's thread-local check), else None."""
+    if not _profiling():
+        return None
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    return torch.autograd.profiler.record_function(name)
+
+
+def _keep(sp: dict, manual: bool = False) -> None:
+    global _local_dropped
+    if len(_local) == LOCAL_CAPACITY:
+        _local_dropped += 1   # the append below evicts the oldest
+    _local.append({
+        "name": sp["name"], "start_ns": sp["t0_ns"], "end_ns": sp["t1_ns"],
+        "thread": threading.current_thread().name,
+        "trace_id": sp["trace_id"], "span_id": sp["span_id"],
+        "parent_span_id": sp.get("parent_span_id", ""),
+        "attrs": sp.get("attrs") or {}, "manual": manual})
+
+
+def local_spans() -> List[Dict[str, Any]]:
+    """The finished spans in this process's buffer, oldest first, without
+    draining it: dicts of name, start_ns and end_ns
+    (``time.perf_counter_ns``), thread, trace_id, span_id,
+    parent_span_id, attrs and manual (a span started and ended apart)."""
+    return list(_local)
+
+
+def local_span_stats() -> Dict[str, int]:
+    """{"kept", "dropped", "capacity"}: the buffer keeps the newest
+    ``capacity`` spans and counts the older ones it let go."""
+    return {"kept": len(_local), "dropped": _local_dropped,
+            "capacity": LOCAL_CAPACITY}
+
+
+def clear_local_spans() -> None:
+    global _local_dropped
+    _local.clear()
+    _local_dropped = 0
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    # no imports and no config lookups that could import: this runs inside
+    # the collector, on whichever thread triggered it
+    global _gc_start
+    if phase == "start":
+        on = _ENABLED or _flag_seen or _profiling()
+        _gc_start = time.perf_counter_ns() if on else None
+        return
+    if _gc_start is None:
+        return
+    t0, _gc_start = _gc_start, None
+    _keep({"name": "host.gc", "t0_ns": t0, "t1_ns": time.perf_counter_ns(),
+           "trace_id": "", "span_id": "",
+           "attrs": {"generation": info.get("generation", -1),
+                     "collected": info.get("collected", 0)}})
+
+
+def _hook_gc() -> None:
+    global _gc_hooked
+    _gc_hooked = True
+    gc.callbacks.append(_on_gc)
 
 
 def _new_id(nbytes: int) -> str:
@@ -183,43 +298,10 @@ def record_span(span: dict, task_id: bytes = b"") -> None:
         pass
 
 
-@contextlib.contextmanager
-def span(name: str, parent: Optional[dict] = None, task_id: bytes = b""):
-    """Explicit span in the current process: chains to the current span
-    (or an explicit `parent` {trace_id, span_id} captured earlier — batch
-    flushes run in timer callbacks outside the request context), installs
-    itself as current for the body, and records through the task-event
-    plane on exit. Yields None (and costs one contextvar read) when
-    tracing is off."""
-    if not tracing_enabled():
-        yield None
-        return
-    cur = parent if parent is not None else _current_span.get()
-    sp = {
-        "trace_id": cur["trace_id"] if cur else _new_id(16),
-        "span_id": _new_id(8),
-        "parent_span_id": (cur.get("span_id") or
-                           cur.get("parent_span_id", "")) if cur else "",
-        "name": name,
-        "start": time.time(),
-    }
-    token = _current_span.set(sp)
-    try:
-        yield sp
-    finally:
-        _current_span.reset(token)
-        sp["end"] = time.time()
-        record_span(sp, task_id=task_id)
+_NULL_SPAN = contextlib.nullcontext()
 
 
-def start_manual_span(name: str, parent: Optional[dict] = None
-                      ) -> Optional[dict]:
-    """Span helper for code that cannot hold a context manager open across
-    its lifetime (async generators driven by a remote consumer: a `with`
-    spanning yields would leak the contextvar into the consumer's turns).
-    Finish with end_manual_span()."""
-    if not tracing_enabled():
-        return None
+def _open(name: str, parent: Optional[dict], attrs: Optional[dict]) -> dict:
     cur = parent if parent is not None else _current_span.get()
     return {
         "trace_id": cur["trace_id"] if cur else _new_id(16),
@@ -228,7 +310,76 @@ def start_manual_span(name: str, parent: Optional[dict] = None
                            cur.get("parent_span_id", "")) if cur else "",
         "name": name,
         "start": time.time(),
+        "t0_ns": time.perf_counter_ns(),
+        "attrs": dict(attrs) if attrs else {},
+        # the task-event plane keeps to the flag; the local buffer also
+        # takes spans recorded because a profiler runs
+        "export": tracing_enabled(),
     }
+
+
+class _Span:
+    __slots__ = ("name", "parent", "task_id", "attrs", "sp", "token", "rf")
+
+    def __init__(self, name, parent, task_id, attrs):
+        self.name, self.parent = name, parent
+        self.task_id, self.attrs = task_id, attrs
+
+    def __enter__(self) -> dict:
+        self.sp = sp = _open(self.name, self.parent, self.attrs)
+        self.token = _current_span.set(sp)
+        self.rf = rf = _annotate(self.name)
+        # the clock is read just before the annotation opens, as on exit
+        # just before it closes, so that the two agree
+        sp["t0_ns"] = time.perf_counter_ns()
+        if rf is not None:
+            rf.__enter__()
+        return sp
+
+    def __exit__(self, *exc) -> None:
+        sp = self.sp
+        sp["t1_ns"] = time.perf_counter_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _current_span.reset(self.token)
+        sp["end"] = time.time()
+        _keep(sp)
+        if sp["export"]:
+            record_span(sp, task_id=self.task_id)
+
+
+def span(name: str, parent: Optional[dict] = None, task_id: bytes = b"",
+         attrs: Optional[dict] = None, on: Optional[bool] = None):
+    """Explicit span in the current process: chains to the current span
+    (or an explicit `parent` {trace_id, span_id} captured earlier — batch
+    flushes run in timer callbacks outside the request context), installs
+    itself as current for the body, and on exit goes to the local buffer
+    and, with the flag on, through the task-event plane. `attrs` holds
+    integers and short strings; the body may add to the yielded span's
+    ``attrs`` (`set_attrs`). Yields None when nothing records; `on` passes
+    a `recording()` answer the caller already holds."""
+    if not (recording() if on is None else on):
+        return _NULL_SPAN
+    return _Span(name, parent, task_id, attrs)
+
+
+def set_attrs(sp: Optional[dict], **attrs) -> None:
+    """Add attributes to an open span (no-op for None)."""
+    if sp is not None:
+        sp["attrs"].update(attrs)
+
+
+def start_manual_span(name: str, parent: Optional[dict] = None,
+                      attrs: Optional[dict] = None,
+                      on: Optional[bool] = None) -> Optional[dict]:
+    """Span helper for code that cannot hold a context manager open across
+    its lifetime (async generators driven by a remote consumer: a `with`
+    spanning yields would leak the contextvar into the consumer's turns;
+    a request's wait in a queue). Finish with end_manual_span(). Manual
+    spans enter no ``record_function``: they may end on another thread."""
+    if not (recording() if on is None else on):
+        return None
+    return _open(name, parent, attrs)
 
 
 @contextlib.contextmanager
@@ -248,10 +399,21 @@ def installed_span(sp: Optional[dict]):
         _current_span.reset(token)
 
 
-def end_manual_span(sp: Optional[dict], **attrs) -> None:
+def end_manual_span(sp: Optional[dict], *, end_ns: Optional[int] = None,
+                    **attrs) -> None:
+    """Finish a manual span, now or at ``end_ns`` (a
+    ``time.perf_counter_ns()`` reading taken earlier). `attrs` join its
+    local attributes and, for the task-event plane, its name
+    (``name[k=v,...]``)."""
     if sp is None:
         return
-    sp["end"] = time.time()
+    now = time.perf_counter_ns()
+    sp["t1_ns"] = now if end_ns is None else end_ns
+    sp["end"] = time.time() - (now - sp["t1_ns"]) * 1e-9
+    sp["attrs"].update(attrs)
+    _keep(sp, manual=True)
+    if not sp["export"]:
+        return
     if attrs:
         sp["name"] = sp["name"] + "[" + ",".join(
             f"{k}={v}" for k, v in sorted(attrs.items())) + "]"
@@ -319,8 +481,9 @@ def list_spans(limit: int = 1000) -> List[Dict[str, Any]]:
     return out[-limit:]
 
 
-__all__ = ["DERIVE_CTX", "bind_generator", "bind_span", "current_span",
-           "derive_trace_id", "enable_tracing", "end_manual_span",
-           "execution_span", "inject_context", "installed_span",
-           "list_spans", "record_span", "resolve_context", "span",
+__all__ = ["DERIVE_CTX", "bind_generator", "bind_span", "clear_local_spans",
+           "current_span", "derive_trace_id", "enable_tracing",
+           "end_manual_span", "execution_span", "inject_context",
+           "installed_span", "list_spans", "local_span_stats", "local_spans",
+           "record_span", "recording", "resolve_context", "set_attrs", "span",
            "start_manual_span", "tracing_enabled"]

@@ -620,12 +620,9 @@ def engine_mid_decode(shape, tree, ecfg, first_prompt, later):
     return asyncio.run(main()), eng.stats()
 
 
-def engine_disaggregated(shape, tree, ecfg, prompts):
-    """(local tokens, tokens admitted with KV prefilled in another pool,
-    stats of the decode engine)."""
-    cfg = _cfg(shape)
-    p = params_from_jax(tree, "cpu")
-    e = EngineConfig(**ecfg)
+def _remote_prefill(cfg, p, e):
+    """``prompt -> (k, v, last logits)`` prefilled in a pool of its own,
+    as a remote prefill worker hands them to a decode engine."""
     prefill = _make_prefill(cfg, e)
 
     def remote_prefill(prompt):
@@ -641,6 +638,16 @@ def engine_disaggregated(shape, tree, ecfg, prompts):
                              len(prompt))
         return _np(kc[:, 1:]), _np(vc[:, 1:]), _np(logits)
 
+    return remote_prefill
+
+
+def engine_disaggregated(shape, tree, ecfg, prompts):
+    """(local tokens, tokens admitted with KV prefilled in another pool,
+    stats of the decode engine)."""
+    cfg = _cfg(shape)
+    p = params_from_jax(tree, "cpu")
+    e = EngineConfig(**ecfg)
+    remote_prefill = _remote_prefill(cfg, p, e)
     local_eng = PagedEngine(cfg, p, e, device="cpu")
     decode_eng = PagedEngine(cfg, p, e, device="cpu")
 
@@ -2008,3 +2015,197 @@ def dash_long_result():
     import ray_tpu_torch as rt
 
     return rt.get(_DASH.pop("long"), timeout=60)
+
+
+# -- util/tracing.py: the engine's and the train step's spans ---------------
+
+
+def _flagged(on: bool):
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.util import tracing
+
+    GLOBAL_CONFIG.apply_system_config({"tracing_enabled": on})
+    tracing.clear_local_spans()
+
+
+def _spans_engine(shape, ecfg):
+    cfg = _cfg(shape)
+    return PagedEngine(cfg, tl.init_params(cfg, 0, device="cpu"),
+                       EngineConfig(**ecfg), device="cpu")
+
+
+def _probe_steps(eng):
+    """(active, cached) read from the engine's state at each decode call."""
+    seen, decode = [], eng._decode
+
+    def probed(*a):
+        act = eng.active.copy()
+        seen.append((int(act.sum()), int(eng.lens[act].sum())))
+        return decode(*a)
+
+    eng._decode = probed
+    return seen
+
+
+def _serve_some(eng, prompts, max_tokens):
+    async def main():
+        return await asyncio.gather(
+            *[_collect(eng, p, max_tokens) for p in prompts])
+
+    return asyncio.run(main())
+
+
+def engine_spans(shape, ecfg, prompts, max_tokens):
+    """With the tracing flag on: the engine's buffered spans, its own
+    (active, cached) at each decode step, its step count and its
+    ``gathered`` positions a step; then a forced collection's spans."""
+    import gc
+
+    from ray_tpu_torch.util import tracing
+
+    _flagged(True)
+    try:
+        eng = _spans_engine(shape, ecfg)
+        seen = _probe_steps(eng)
+        _serve_some(eng, prompts, max_tokens)
+        eng._worker.shutdown(wait=True)
+        spans = tracing.local_spans()
+        gc.collect()
+        gcs = [s for s in tracing.local_spans() if s["name"] == "host.gc"]
+        return dict(spans=spans, seen=seen, steps=eng.steps, gc=gcs,
+                    gathered=eng.ecfg.max_num_seqs * eng.max_blocks * eng.bs)
+    finally:
+        _flagged(False)
+
+
+def train_spans(shape, tokens, steps):
+    """With the flag on: the spans of ``steps`` train steps."""
+    from ray_tpu_torch.util import tracing
+
+    _flagged(True)
+    try:
+        train_from_seed(shape, tokens, 1e-3, steps)
+        return [s for s in tracing.local_spans()
+                if s["name"].startswith("train.")]
+    finally:
+        _flagged(False)
+
+
+def spans_off(shape, ecfg, prompts, tokens):
+    """With the flag off and no profiler: (buffered spans, the names of the
+    ``record_function``s entered) over an engine run and a train step
+    (torch's optimizer enters one of its own on every step)."""
+    from torch.autograd import profiler as ap
+
+    from ray_tpu_torch.util import tracing
+
+    _flagged(False)
+    entered = []
+    enter = ap.record_function.__enter__
+
+    def counted(self):
+        entered.append(self.name)
+        return enter(self)
+
+    ap.record_function.__enter__ = counted
+    try:
+        _serve_some(_spans_engine(shape, ecfg), prompts, 4)
+        train_from_seed(shape, tokens, 1e-3, 1)
+        return tracing.local_spans(), sorted(set(entered))
+    finally:
+        ap.record_function.__enter__ = enter
+
+
+def spans_profiled(shape, ecfg, prompts, max_tokens, tmpdir):
+    """The flag off, a CPU profiler started on the engine's worker thread as
+    the benchmark's traced run starts it: (the buffered spans' names, for
+    each worker span that ``progspans`` maps, the distance in microseconds
+    from its mapped start and end to its own annotation's, the largest
+    residual of the mapping)."""
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "portbench"))
+    import devtrace
+    import progspans
+
+    from ray_tpu_torch.util import tracing
+
+    _flagged(False)
+    eng = _spans_engine(shape, ecfg)
+    path = os.path.join(tmpdir, "trace.json")
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        prof = await loop.run_in_executor(eng._worker, devtrace.Profile, path)
+        await loop.run_in_executor(eng._worker, prof.open)
+        outs = await asyncio.gather(
+            *[_collect(eng, p, max_tokens) for p in prompts])
+        await loop.run_in_executor(eng._worker, prof.stop)
+        return outs
+
+    asyncio.run(main())
+    eng._worker.shutdown(wait=True)
+    tr = devtrace.Trace(path)
+    m = progspans.mapped(tr)
+    ann = {}
+    for ts, end, name in tr.spans:
+        ann.setdefault(name, []).append((ts, end))
+    dists = []
+    for s in m.spans:
+        if s.thread not in m.profiled or s.manual:
+            continue
+        near = min(ann.get(s.name, []), key=lambda a: abs(a[0] - s.ts),
+                   default=None)
+        if near is not None:
+            dists.append((s.name, abs(near[0] - s.ts), abs(near[1] - s.end)))
+    return ([s["name"] for s in tracing.local_spans()], dists,
+            m.residual_us, m.split())
+
+
+def engine_threads(shape, ecfg, prompts):
+    """The threads that put into a request queue and that set or bump an
+    engine metric, over local admissions (prefix hits among them) and
+    admissions with KV prefilled elsewhere; and the loop's own thread."""
+    import threading
+
+    from ray_tpu_torch.util.metrics import Counter, Gauge
+
+    seen = {"put": set(), "metric": set()}
+    put, gset, cinc = asyncio.Queue.put_nowait, Gauge.set, Counter.inc
+
+    def put_nowait(self, item):
+        seen["put"].add(threading.get_ident())
+        return put(self, item)
+
+    def gauge_set(self, *a, **k):
+        seen["metric"].add(threading.get_ident())
+        return gset(self, *a, **k)
+
+    def counter_inc(self, *a, **k):
+        seen["metric"].add(threading.get_ident())
+        return cinc(self, *a, **k)
+
+    cfg = _cfg(shape)
+    p = tl.init_params(cfg, 0, device="cpu")
+    e = EngineConfig(**ecfg)
+    eng = PagedEngine(cfg, p, e, device="cpu")
+    remote_prefill = _remote_prefill(cfg, p, e)
+
+    async def main():
+        loop_thread = threading.get_ident()
+        local = await asyncio.gather(*[_collect(eng, q, 6) for q in prompts])
+        again = await asyncio.gather(*[_collect(eng, q, 6) for q in prompts])
+        moved = [await _collect(eng, q, 6, prefilled=remote_prefill(q))
+                 for q in prompts]
+        return loop_thread, local, again, moved
+
+    asyncio.Queue.put_nowait = put_nowait
+    Gauge.set, Counter.inc = gauge_set, counter_inc
+    try:
+        loop_thread, local, again, moved = asyncio.run(main())
+    finally:
+        asyncio.Queue.put_nowait = put
+        Gauge.set, Counter.inc = gset, cinc
+    return dict(loop=loop_thread, put=sorted(seen["put"]),
+                metric=sorted(seen["metric"]), local=local, again=again,
+                moved=moved, stats=eng.stats())
